@@ -1,12 +1,14 @@
 #!/usr/bin/env python3
-"""Run the PyTorch port's compress/index path once on one NVIDIA card.
+"""Run the PyTorch port's compress, decompress and search paths once on one
+NVIDIA card.
 
     python3 chip_smoke.py
 
 Phases (any mismatch or exception exits non-zero):
 
-1. environment and build: the card's name and power limit, the CUDA scan
-   kernel built from gecoz_tpu_torch/csrc with nvcc (time, -Xptxas -v);
+1. environment and build: the card's name and power limit, the three CUDA
+   kernels (scan, fm_search, lf_walk) built from gecoz_tpu_torch/csrc, one
+   nvcc each, all started together (time, -Xptxas -v);
 2. every scan entry point against its plain PyTorch version, bit-exact, at
    the sizes the path uses, then both timed with CUDA events;
 3. the run-aware suffix sort (sort and scatter strategies, with and
@@ -16,20 +18,37 @@ Phases (any mismatch or exception exits non-zero):
 5. end to end: a seeded FASTA with a 64 MiB chromosome-class block through
    `python -m gecoz_tpu_torch.cli`, the .gcz/.gcx bytes held against
    gecoz_tpu's host tier, the file decompressed by gecoz_tpu and checked
-   by md5 per record;
-6. the scan launches the end-to-end run made;
+   by md5 per record, then decompressed by the port's CLI on the card and
+   held byte for byte against gecoz_tpu's output; the card's busy share of
+   one 64 MiB block's decompress under torch.profiler;
+6. the scan launches the compress run made, the LF-walk launches of the
+   decompress run;
 7. two blocks of hg38's chr1 and chr2 lengths in a row through the CLI,
-   decompressed by gecoz_tpu and checked by md5 per record.
+   decompressed by the port's CLI on the card and checked by md5 per
+   record;
+8. the query kernels at full width against their plain versions on the
+   card, bit-exact, then timed: K2's decode walks (k = 16 rows and
+   per-step plain rows of a 64 MiB block; packed rows at the probe's
+   2048 walks x 32 steps over a 2 Mi block) and locate walks (2^20 rows),
+   K1's search (2^20 16-mers, 20,000 reads of 16-150 bases on both
+   strands);
+9. GFF3 search of 1,000 reads through the port's CLI, byte for byte
+   against gecoz_tpu's CLI (host backend), at the default memory budget
+   (locate table) and at a budget forced low (LF walks); count, locate and
+   range extract against gecoz_tpu's CLI; the card's busy share of one
+   64 MiB block's search under torch.profiler.
 
 The oracles are gecoz_tpu's framework-free host modules; JAX is blocked
 from being imported.  The last line is {"ok": true, "device": {...}}; the
-line before it lists the kernels of the path with their launches in the
-end-to-end run.
+line before it lists the kernels of the paths with their launches in the
+runs through the CLI.
 """
 
 from __future__ import annotations
 
+import contextlib
 import hashlib
+import io
 import json
 import os
 import subprocess
@@ -54,11 +73,75 @@ PATH_KERNELS = ("cumsum_i32", "fill_rev_i32", "fill_fwd_i32")
 KERNELS = ("cumsum_i32", "cummax_i32", "cummin_rev_i32", "fill_fwd_i32",
            "fill_rev_i32")
 REPLACES = "gecoz_tpu/ops/scan_pallas.py:114"     # _scan_pallas
+LIBS = ("scan", "fmsearch", "lfwalk")
+# the query kernels' entry points: (name, source, TPU kernel replaced)
+QUERY_KERNELS = (
+    ("fm_search", "gecoz_tpu_torch/csrc/fmsearch.cu",
+     "tools/probe_pallas.py:29"),                  # step1_vmem_gather
+    ("lf_walk.decode", "gecoz_tpu_torch/csrc/lfwalk.cu",
+     "tools/probe_gather2d.py:18"),                # main: k_walk
+    ("lf_walk.locate", "gecoz_tpu_torch/csrc/lfwalk.cu",
+     "tools/probe_gather2d.py:18"))
 
 
 def check(ok: bool, what: str) -> None:
     if not ok:
         raise RuntimeError(f"FAILED: {what}")
+
+
+def reset_counts() -> None:
+    from gecoz_tpu_torch.ops import fmsearch, lfwalk, scan
+    for mod in (scan, fmsearch, lfwalk):
+        mod.reset_launches()
+
+
+def counts() -> dict[str, int]:
+    """Launches of every kernel entry point since the last reset."""
+    from gecoz_tpu_torch.ops import fmsearch, lfwalk, scan
+    out = dict(scan.LAUNCHES)
+    out["fm_search"] = fmsearch.LAUNCHES["fm_search"]
+    out.update({f"lf_walk.{k}": v for k, v in lfwalk.LAUNCHES.items()})
+    return out
+
+
+def print_phases(prefix: str = "") -> None:
+    from gecoz_tpu.utils import metrics
+    for name, st in sorted(metrics.stats().items()):
+        if name.startswith(prefix):
+            print(f"#   phase {name}: {st.seconds * 1e3:.1f} ms over "
+                  f"{st.calls} calls"
+                  + (f", {st.mbps:.1f} MB/s" if st.bytes else ""))
+
+
+def md5_records(path) -> dict[str, str]:
+    from gecoz_tpu.formats.fasta import iter_fasta
+    return {r.header.split()[0]: hashlib.md5(bytes(r.data)).hexdigest()
+            for r in iter_fasta(path)}
+
+
+def timed_pair(name, kern, plain, reps, err, times, key=None):
+    """Kernel against its plain version on the same inputs (every output
+    tensor bit-exact), then both timed in turns plain, kernel, kernel,
+    plain."""
+    import torch
+    got, want = kern(), plain()
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    torch.cuda.synchronize()
+    e = max(int((g.long() - w.long()).abs().max()) if g.numel() else 0
+            for g, w in zip(got, want))
+    err[name] = max(err.get(name, 0), e)
+    for g, w in zip(got, want):
+        check(torch.equal(g, w), f"{key or name}: kernel differs from plain "
+              f"(max abs err {e})")
+    t = [cuda_ms(plain, reps), cuda_ms(kern, reps), cuda_ms(kern, reps),
+         cuda_ms(plain, reps)]
+    ms, pl = (t[1] + t[2]) / 2, (t[0] + t[3]) / 2
+    times[key or name] = (ms, pl)
+    print(f"# time {key or name}: kernel {ms:.4f} ms, plain {pl:.4f} ms "
+          f"(turns plain/kernel/kernel/plain {t[0]:.4f} {t[1]:.4f} "
+          f"{t[2]:.4f} {t[3]:.4f}); bit-exact")
+    return got
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -84,13 +167,21 @@ def wall(fn):
     return out, time.perf_counter() - t0
 
 
-def phase_build(scan, build):
+def phase_build(build):
+    import concurrent.futures as cf
+    from gecoz_tpu_torch.ops import fmsearch, lfwalk, scan
     t0 = time.perf_counter()
-    scan._lib()
-    info = build.BUILDS["scan"]
-    print(f"# build: {info.path.name} in {info.seconds:.3f} s "
-          f"(load {time.perf_counter() - t0:.3f} s)")
-    print(info.ptxas)
+    # one nvcc per source, all started together; _lib() also declares the
+    # C signatures
+    with cf.ThreadPoolExecutor(max_workers=len(LIBS)) as pool:
+        for fut in [pool.submit(mod._lib) for mod in (scan, fmsearch, lfwalk)]:
+            fut.result()
+    print(f"# build: {len(LIBS)} libraries in "
+          f"{time.perf_counter() - t0:.3f} s wall (one nvcc each, together)")
+    for name in LIBS:
+        info = build.BUILDS[name]
+        print(f"# build: {info.path.name} in {info.seconds:.3f} s")
+        print(info.ptxas)
 
 
 def scan_inputs(rng, n, dev):
@@ -265,9 +356,11 @@ def phase_query_state(dev):
     return out
 
 
-def profile_busy(fn, what: str) -> None:
+def profile_busy(fn, what: str,
+                 ours=("tile_reduce", "agg_scan", "tile_scan")) -> None:
     """Device kernel time by kernel name under torch.profiler, and its sum
-    against the wall time of the same (profiled) run."""
+    against the wall time of the same (profiled) run; `ours` names the
+    hand-written kernels to total apart."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -288,14 +381,13 @@ def profile_busy(fn, what: str) -> None:
         print(f"# profile {what}: no device time recorded (not measured)")
         return
     busy = sum(r[0] for r in by_name.values())
-    scans = [r for k, r in by_name.items()
-             if any(f in k for f in ("tile_reduce", "agg_scan", "tile_scan"))]
+    mine = [r for k, r in by_name.items() if any(f in k for f in ours)]
     print(f"# profile {what}: kernels busy {busy:.1f} ms of "
           f"{secs * 1e3:.1f} ms wall under the profiler "
           f"({100 * busy / secs / 1e3:.0f}%), "
-          f"{sum(r[1] for r in by_name.values())} kernel launches; the "
-          f"scan kernels {sum(r[0] for r in scans):.2f} ms in "
-          f"{sum(r[1] for r in scans)} launches")
+          f"{sum(r[1] for r in by_name.values())} kernel launches; "
+          f"{'/'.join(ours)} {sum(r[0] for r in mine):.2f} ms in "
+          f"{sum(r[1] for r in mine)} launches")
     for name, (ms, count) in sorted(by_name.items(),
                                     key=lambda kv: -kv[1][0])[:12]:
         print(f"#   {ms:8.2f} ms {count:5d}x {name[:100]}")
@@ -341,10 +433,8 @@ def make_genome(seed: int = 5):
     return recs
 
 
-def phase_end_to_end(dev, scan, workdir):
-    import numpy as np
+def phase_end_to_end(dev, workdir):
     import torch
-    from gecoz_tpu.formats.fasta import iter_fasta
     from gecoz_tpu.tools import driver as host_driver
     from gecoz_tpu.utils import metrics
     from gecoz_tpu_torch import cli
@@ -361,19 +451,17 @@ def phase_end_to_end(dev, scan, workdir):
     port_gcz = os.path.join(workdir, "port.gcz")
     metrics.reset()
     torch.cuda.reset_peak_memory_stats(dev)
-    scan.reset_launches()                     # the main path starts here
+    reset_counts()                            # the compress path starts
     t0 = time.perf_counter()
     rc = cli.main(["-i", fa, "-o", port_gcz, "--device", str(dev)])
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
-    launches = dict(scan.LAUNCHES)            # ... and ends here
+    launches = counts()                       # ... and ends here
     check(rc == 0, f"port CLI exit code {rc}")
     peak = torch.cuda.max_memory_allocated(dev)
     print(f"# port CLI compress: {secs:.2f} s -> {total / 1e6 / secs:.2f} "
           f"MB/s end to end; peak device memory {peak / 2**30:.2f} GiB")
-    for name, st in sorted(metrics.stats().items()):
-        print(f"#   phase {name}: {st.seconds * 1e3:.1f} ms over {st.calls} "
-              f"calls" + (f", {st.mbps:.1f} MB/s" if st.bytes else ""))
+    print_phases()
 
     host_gcz = os.path.join(workdir, "host.gcz")
     t0 = time.perf_counter()
@@ -390,15 +478,53 @@ def phase_end_to_end(dev, scan, workdir):
     back = os.path.join(workdir, "back.fa")
     t0 = time.perf_counter()
     host_driver.decompress(port_gcz, back, backend="numpy", threads=4)
-    got_md5 = {r.header.split()[0]: hashlib.md5(bytes(r.data)).hexdigest()
-               for r in iter_fasta(back)}
+    got_md5 = md5_records(back)
     check(got_md5 == want_md5, "decompressed records differ from the input")
     print(f"# decompress (gecoz_tpu, numpy): {time.perf_counter() - t0:.2f} "
           f"s; md5 equal for all {len(want_md5)} records")
     for name in PATH_KERNELS:
         check(launches[name] > 0, f"{name} was not launched by the path")
-    print(f"# launches during the end-to-end run: {json.dumps(launches)}")
-    return launches
+    print(f"# launches during the compress run: {json.dumps(launches)}")
+
+    # the decompress path: the port's CLI on the card
+    back_port = os.path.join(workdir, "back_port.fa")
+    metrics.reset()
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_counts()                            # the decompress path starts
+    t0 = time.perf_counter()
+    rc = cli.main(["-i", port_gcz, "-o", back_port, "-t", "4",
+                   "--device", str(dev)])
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    dlaunches = counts()                      # ... and ends here
+    check(rc == 0, f"port CLI decompress exit code {rc}")
+    a = open(back_port, "rb").read()
+    check(a == open(back, "rb").read(), "the port's decompress differs "
+          "from gecoz_tpu's")
+    check(dlaunches["lf_walk.decode"] > 0, "lf_walk.decode was not "
+          "launched by the decompress path")
+    print(f"# port CLI decompress: {secs:.2f} s -> {total / 1e6 / secs:.2f} "
+          f"MB/s end to end, {len(a)} bytes byte-identical to gecoz_tpu's "
+          f"(md5 {hashlib.md5(a).hexdigest()}); peak device memory "
+          f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB")
+    print_phases("decode.")
+    print(f"# launches during the decompress run: {json.dumps(dlaunches)}")
+    del a
+
+    from gecoz_tpu.formats.gcz import GecozReader
+    from gecoz_tpu_torch.tools import driver
+    reader = GecozReader(port_gcz)
+    big = max(reader.headers, key=lambda h: h.len)
+    fm = reader.read(big)
+    one = os.path.join(workdir, "one_block.fa")
+    open(one, "wb").close()
+    profile_busy(lambda: driver._decompress_block(fm, big.headers, one, 0, 4,
+                                                  dev),
+                 f"decompress of the {big.len / MiB:.1f} MiB block (host BWT "
+                 "decode, lift, tables, walks, fetch and reflow)",
+                 ours=("lf_decode", "tile_reduce", "agg_scan", "tile_scan"))
+    del fm
+    return launches, dlaunches
 
 
 def phase_two_large_blocks(dev, workdir):
@@ -407,8 +533,6 @@ def phase_two_large_blocks(dev, workdir):
     served from what the first left in torch's allocator cache."""
     import numpy as np
     import torch
-    from gecoz_tpu.formats.fasta import iter_fasta
-    from gecoz_tpu.tools import driver as host_driver
     from gecoz_tpu.utils import metrics
     from gecoz_tpu_torch import cli
 
@@ -437,19 +561,249 @@ def phase_two_large_blocks(dev, workdir):
           f"GiB; after the run {torch.cuda.memory_reserved(dev) / 2**30:.2f} "
           f"GiB reserved by torch, {free / 2**30:.2f} of {cap / 2**30:.2f} "
           "GiB free on the card")
-    for name, st in sorted(metrics.stats().items()):
-        print(f"#   phase {name}: {st.seconds * 1e3:.1f} ms over {st.calls} "
-              f"calls" + (f", {st.mbps:.1f} MB/s" if st.bytes else ""))
+    print_phases()
     os.unlink(fa)
     back = os.path.join(workdir, "large_back.fa")
+    metrics.reset()
+    torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
-    host_driver.decompress(gcz, back, backend="numpy", threads=4)
-    got_md5 = {r.header.split()[0]: hashlib.md5(bytes(r.data)).hexdigest()
-               for r in iter_fasta(back)}
-    check(got_md5 == want_md5, "two large blocks: decompressed records "
-          "differ from the input")
-    print(f"# decompress (gecoz_tpu, numpy): {time.perf_counter() - t0:.2f} "
-          "s; md5 equal for both records")
+    rc = cli.main(["-i", gcz, "-o", back, "-t", "4", "--device", str(dev)])
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    check(rc == 0, f"port CLI decompress exit code {rc} on two large blocks")
+    peak = torch.cuda.max_memory_allocated(dev)
+    check(md5_records(back) == want_md5, "two large blocks: decompressed "
+          "records differ from the input")
+    print(f"# port CLI decompress of the two large blocks: {secs:.2f} s -> "
+          f"{total / 1e6 / secs:.2f} MB/s end to end; md5 equal for both "
+          f"records; peak device memory {peak / 2**30:.2f} GiB = "
+          f"{peak / 248_956_423:.1f} B/char of the chr1 block")
+    print_phases("decode.")
+
+
+def phase_query_kernels(dev):
+    """Phase 8: K1 and K2 at full width against their plain versions."""
+    import numpy as np
+    import torch
+    from gecoz_tpu.tools.batch_search import pack_patterns
+    from gecoz_tpu_torch.ops import fmq, fmsearch, lfwalk
+    from gecoz_tpu_torch.ops.pipeline import index_block
+    from bench import synth_dna
+    err, times = {}, {}
+    rng = np.random.default_rng(23)
+
+    n = 64 * MiB
+    s = synth_dna(n, seed=11)
+    blk, secs = wall(lambda: index_block(torch.from_numpy(s).to(dev)))
+    blk, tsecs = wall(lambda: fmq.with_lf_table(blk))
+    print(f"# 64 MiB block: index_block {secs * 1e3:.1f} ms, with_lf_table "
+          f"{tsecs * 1e3:.1f} ms (lfk_k {blk.lfk_k}, packed rows "
+          f"{blk.lf_packed})")
+    check(blk.lfk_k == 16 and not blk.lf_packed, "64 MiB block tables")
+    rate = 1 << blk.sf
+    W = (n - 1) // rate
+    seeds = fmq._row_with_sa(blk, (torch.arange(W, dtype=torch.int32,
+                                                device=dev) + 1) * rate)
+    cmap = fmq.code_map(blk)
+    timed_pair("lf_walk.decode",
+               lambda: lfwalk.decode_walks(blk.lfk_tab, seeds, rate, "lfk16",
+                                           code_map=cmap),
+               lambda: lfwalk.decode_walks_ref(blk.lfk_tab, seeds, rate,
+                                               "lfk16", code_map=cmap),
+               10, err, times, "lf_walk.decode lfk16 64 MiB")
+    timed_pair("lf_walk.decode",
+               lambda: lfwalk.decode_walks(blk.lf_tab, seeds, rate, "plain",
+                                           bwt=blk.bwt),
+               lambda: lfwalk.decode_walks_ref(blk.lf_tab, seeds, rate,
+                                               "plain", bwt=blk.bwt),
+               5, err, times, "lf_walk.decode plain 64 MiB")
+    text, secs = wall(lambda: fmq.decode_text(blk))
+    check(np.array_equal(text.cpu().numpy(), s), "decode_text 64 MiB != "
+          "the block")
+    print(f"# decode_text 64 MiB: {secs * 1e3:.1f} ms -> {n / 1e6 / secs:.1f} "
+          "MB/s (tables built, text on the card); equal to the block")
+    del text, seeds
+
+    rows = torch.from_numpy(rng.integers(0, n, 1 << 20).astype(
+        np.int32)).to(dev)
+    args = (blk.lf_tab, rows, blk.mark_words, blk.mark_pre, blk.ssa_perm,
+            blk.sf, blk.lf_packed)
+    (vals,) = timed_pair("lf_walk.locate", lambda: lfwalk.locate_walks(*args),
+                         lambda: lfwalk.locate_walks_ref(*args), 10, err,
+                         times, "lf_walk.locate 2^20 rows 64 MiB")
+    # BWT[row] = T[SA[row] - 1]: the located values agree with the text
+    v = vals.cpu().numpy().astype(np.int64)
+    check(bool((v >= 0).all()) and np.array_equal(
+        blk.bwt[rows.long()].cpu().numpy(), s[(v - 1) % n]),
+        "located values disagree with the text")
+
+    k_blk = fmq.with_kmer_table(blk)
+    print(f"# k-mer table: k {k_blk.kmer_k}, {k_blk.kmer_bits} bits, "
+          f"{k_blk.kmer_tab.shape[0]} rows")
+    L, B = 16, 1 << 20
+    starts = np.random.default_rng(3).integers(0, n - L, size=B)
+    pats = torch.from_numpy(s[starts[:, None] + np.arange(L)]).to(dev)
+    lens = torch.full((B,), L, dtype=torch.int32, device=dev)
+    sp, ep = timed_pair("fm_search",
+                        lambda: fmsearch.backward_search(k_blk, pats, lens),
+                        lambda: fmsearch.backward_search_ref(k_blk, pats,
+                                                             lens),
+                        10, err, times, "fm_search 2^20 16-mers")
+    # every 16-mer drawn from the text occurs (those across a separator
+    # excepted: backward search steps through '\0' uncorrected)
+    whole = (pats != 0).all(1)
+    check(bool((ep >= sp)[whole].all()), "a 16-mer drawn from the block "
+          "was not found")
+    ms = times["fm_search 2^20 16-mers"][0]
+    print(f"# fm_search 2^20 16-mers: {B / ms / 1e3:.1f} Mq/s (kernel only)")
+    comp = bytes.maketrans(b"ACGTN", b"TGCAN")
+    reads = []
+    for a, ln in zip(rng.integers(0, n - 150, 20000),
+                     rng.integers(16, 151, 20000)):
+        r = s[a:a + ln].tobytes()
+        reads += [r, r[::-1].translate(comp)]
+    arr, ln = pack_patterns(reads)
+    pats, lens = (torch.from_numpy(arr).to(dev),
+                  torch.from_numpy(ln).to(dev))
+    sp, ep = timed_pair("fm_search",
+                        lambda: fmsearch.backward_search(k_blk, pats, lens),
+                        lambda: fmsearch.backward_search_ref(k_blk, pats,
+                                                             lens),
+                        5, err, times, "fm_search 20,000 reads x 2 strands")
+    whole = (pats[0::2] != 0).all(1)
+    check(bool((ep[0::2] >= sp[0::2])[whole].all()), "a read drawn from the "
+          "block was not found")
+    del blk, k_blk, pats, lens, rows, vals
+
+    # the probe's shape: 2048 walks x 32 steps over a 2 Mi block's rows
+    n2 = 2 * MiB
+    s2 = synth_dna(n2, seed=7)
+    b2 = fmq.with_lf_table(index_block(torch.from_numpy(s2).to(dev)),
+                           decode=False)
+    check(b2.lf_packed, "2 Mi block rows are packed")
+    seeds2 = torch.from_numpy(rng.integers(0, n2, 2048).astype(
+        np.int32)).to(dev)
+    timed_pair("lf_walk.decode",
+               lambda: lfwalk.decode_walks(b2.lf_tab, seeds2, 32, "packed"),
+               lambda: lfwalk.decode_walks_ref(b2.lf_tab, seeds2, 32,
+                                               "packed"),
+               50, err, times, "lf_walk.decode packed probe 2048x32")
+    del b2
+    torch.cuda.empty_cache()
+    return err, times
+
+
+def make_queries(rng, path, count=1000):
+    """`count` reads of 16-150 bases from the N-free stretches of the smoke
+    genome (a read inside an N run would match up to a million places): a
+    quarter with one base changed, a quarter with an N.  Returns a 12-mer
+    of chr1 for the single-pattern verbs."""
+    recs = make_genome()
+
+    def window(seq, ln):
+        while True:
+            a = int(rng.integers(0, len(seq) - ln))
+            r = seq[a:a + ln].copy()
+            if not (r == ord("N")).any():
+                return r
+    with open(path, "wb") as f:
+        for i in range(count):
+            name, seq = recs[int(rng.integers(0, len(recs)))]
+            ln = int(rng.integers(16, 151))
+            r = window(seq, ln)
+            if i % 4 == 1:
+                j = int(rng.integers(0, ln))
+                r[j] = b"ACGT"[(b"ACGT".find(bytes(r[j:j + 1])) + 1) % 4]
+            elif i % 4 == 2:
+                r[int(rng.integers(0, ln))] = ord("N")
+            f.write(b">read%d|%s\n" % (i, name.split()[0].encode())
+                    + r.tobytes() + b"\n")
+    return window(recs[0][1], 12).tobytes().decode()
+
+
+def cli_out(main, argv) -> str:
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = main(argv)
+    check(rc == 0, f"{argv}: exit code {rc}")
+    return buf.getvalue()
+
+
+def phase_search(dev, workdir, port_gcz):
+    """Phase 9: GFF3 search through the port's CLI against gecoz_tpu's."""
+    import numpy as np
+    import torch
+    from gecoz_tpu.cli import main as ref_main
+    from gecoz_tpu.formats.gcz import GecozReader
+    from gecoz_tpu.utils import metrics
+    from gecoz_tpu_torch import cli
+
+    qf = os.path.join(workdir, "queries.fa")
+    pat = make_queries(np.random.default_rng(29), qf)
+    nblocks = len(GecozReader(port_gcz).headers)
+    t0 = time.perf_counter()
+    want = cli_out(ref_main, ["-i", port_gcz, "-s", qf, "--backend",
+                              "numpy"])
+    print(f"# gecoz_tpu CLI -s queries.fa (numpy): "
+          f"{time.perf_counter() - t0:.2f} s, {want.count(chr(10))} rows")
+    launches = {}
+    for label, budget in (("default budget", None), ("budget 1 B", "1")):
+        if budget:
+            os.environ["GECOZ_HBM_BYTES"] = budget
+        metrics.reset()
+        reset_counts()                        # the search path starts
+        t0 = time.perf_counter()
+        got = cli_out(cli.main, ["-i", port_gcz, "-s", qf, "--device",
+                                 str(dev)])
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches[label] = counts()            # ... and ends here
+        os.environ.pop("GECOZ_HBM_BYTES", None)
+        check(got == want, f"GFF3 rows ({label}) differ from gecoz_tpu's")
+        st = metrics.stats()
+        q = 2000 * nblocks
+        card = st["search.batch"].seconds + st["search.locate"].seconds
+        print(f"# port CLI -s queries.fa ({label}): {secs:.2f} s, "
+              f"{len(got)} bytes byte-identical to gecoz_tpu's; "
+              f"{q} pattern-block searches, {q / card:.0f} queries/s over "
+              f"search.batch + search.locate")
+        print_phases("search.")
+        print(f"# launches during the search run ({label}): "
+              f"{json.dumps(launches[label])}")
+    check(launches["default budget"]["fm_search"] > 0, "fm_search was not "
+          "launched by the search path")
+    check(launches["budget 1 B"]["lf_walk.locate"] > 0, "lf_walk.locate was "
+          "not launched by the search path past the budget")
+
+    from gecoz_tpu.formats.fasta import iter_fasta
+    from gecoz_tpu.tools.driver import _COMPLEMENT
+    from gecoz_tpu_torch.tools.batch_search import find_batched
+    pats = []
+    for q in iter_fasta(qf):
+        seq = bytes(q.data)
+        pats += [seq, seq[::-1].translate(_COMPLEMENT)]
+    reader = GecozReader(port_gcz)
+    big = max(reader.headers, key=lambda h: h.len)
+    fm = reader.read(big)
+    profile_busy(lambda: find_batched(fm, pats, dev),
+                 f"GFF3 search of the {big.len / MiB:.1f} MiB block (host BWT "
+                 "decode, lift, k-mer and locate tables, search, locate)",
+                 ours=("fm_search", "lf_locate", "tile_reduce", "agg_scan",
+                       "tile_scan"))
+    del fm
+
+    for argv in (["-c", pat], ["-s", "chr2", pat], ["-s", pat]):
+        a = cli_out(cli.main, ["-i", port_gcz] + argv)
+        check(a == cli_out(ref_main, ["-i", port_gcz] + argv),
+              f"{argv} differs from gecoz_tpu's")
+    a, b = (os.path.join(workdir, x) for x in ("a.seq", "b.seq"))
+    cli_out(cli.main, ["-i", port_gcz, "-o", a, "chr2", "1000", "50000"])
+    cli_out(ref_main, ["-i", port_gcz, "-o", b, "chr2", "1000", "50000"])
+    check(open(a, "rb").read() == open(b, "rb").read(), "range extract "
+          "differs from gecoz_tpu's")
+    print("# -c, -s chr2 PATTERN, -s PATTERN and range extract: identical "
+          "to gecoz_tpu's CLI")
+    return launches
 
 
 def main() -> int:
@@ -472,14 +826,16 @@ def main() -> int:
                          text=True, check=True).stdout.strip()
     print(smi)
     t_all = time.perf_counter()
-    phase_build(scan, _build)
+    phase_build(_build)
     err, times = phase_kernels(scan, dev)
     phase_suffix_sort(dev)
     phase_query_state(dev)
     with tempfile.TemporaryDirectory() as work:
-        launches = phase_end_to_end(dev, scan, work)
-    with tempfile.TemporaryDirectory() as work:
-        phase_two_large_blocks(dev, work)
+        launches, dlaunches = phase_end_to_end(dev, work)
+        with tempfile.TemporaryDirectory() as large:
+            phase_two_large_blocks(dev, large)
+        qerr, qtimes = phase_query_kernels(dev)
+        slaunches = phase_search(dev, work, os.path.join(work, "port.gcz"))
     check("jax" not in sys.modules, "jax was imported")
     print(f"# all phases passed in {time.perf_counter() - t_all:.1f} s")
 
@@ -489,11 +845,26 @@ def main() -> int:
                 "source": "gecoz_tpu_torch/csrc/scan.cu",
                 "replaces": REPLACES, "launches": launches[name],
                 "max_abs_err": err[name], "ms": ms, "plain_ms": plain}
+    # the query kernels: launches from the run of the path that takes
+    # them, times at the path's shapes on the 64 MiB block (phase 8)
+    runs = {"fm_search": (slaunches["default budget"],
+                          "fm_search 2^20 16-mers"),
+            "lf_walk.decode": (dlaunches, "lf_walk.decode lfk16 64 MiB"),
+            "lf_walk.locate": (slaunches["budget 1 B"],
+                               "lf_walk.locate 2^20 rows 64 MiB")}
+
+    def query_entry(name, source, replaces):
+        run, key = runs[name]
+        ms, plain = qtimes[key]
+        return {"name": name, "route": "cuda", "source": source,
+                "replaces": replaces, "launches": run[name],
+                "max_abs_err": qerr[name], "ms": ms, "plain_ms": plain}
     # cummax_i32 and cummin_rev_i32 share the kernel template but have no
-    # caller on the path: checked and timed above, listed apart
+    # caller on the paths: checked and timed above, listed apart
     off_path = [entry(k) for k in KERNELS if k not in PATH_KERNELS]
-    print(f"# ported, not on the path: {json.dumps(off_path)}")
-    print(json.dumps({"kernels": [entry(k) for k in PATH_KERNELS]}))
+    print(f"# ported, not on the paths: {json.dumps(off_path)}")
+    print(json.dumps({"kernels": [entry(k) for k in PATH_KERNELS]
+                      + [query_entry(*q) for q in QUERY_KERNELS]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

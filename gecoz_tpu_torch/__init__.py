@@ -1,8 +1,11 @@
 """gecoz_tpu_torch: the PyTorch/CUDA port of gecoz_tpu for NVIDIA Hopper.
 
-Ported so far: compress/index on one card (FASTA -> .gcz/.gcx, byte-identical
-to gecoz_tpu), with the Pallas streaming scan rewritten as a CUDA kernel
-(`csrc/scan.cu`).  The framework-free host modules of gecoz_tpu (formats,
+Ported: compress/index (FASTA -> .gcz/.gcx, byte-identical to gecoz_tpu),
+decompress and GFF3 batch search on one card, and the CLI with every verb
+of the reference.  The TPU kernels are hand-written CUDA kernels in
+`csrc/`: the streaming scan (`scan.cu`), the backward search
+(`fmsearch.cu`) and the LF walks (`lfwalk.cu`).  The framework-free host
+modules of gecoz_tpu (formats,
 index serializers, Huffman shape, C++ SA-IS, block planner) are imported,
 not copied; nothing here imports JAX.
 """

@@ -1,15 +1,27 @@
-"""gecotools-compatible command line of the port: compress/index.
+"""gecotools-compatible command line of the port.
 
-    python -m gecoz_tpu_torch.cli -i in.fa -o out.gcz [-idx out.gcx]
-                                  [-v LEVEL] [--resume] [--sampling N]
+    python -m gecoz_tpu_torch.cli -i file [-o out [header [from [to]]]]
+                                  [-c [header] PATTERN]
+                                  [-s [header] PATTERN | -s query.fa]
+                                  [-t N] [-v LEVEL] [-idx path.gcx]
+                                  [--resume] [--sampling N] [--check [--deep]]
                                   [--device cuda:0|cpu]
 
 Flags are parsed as the reference CLI parses them (gecoz_tpu/cli.py,
-Gecotools.java:209-243).  Only the compress verb is ported; it encodes on
-the card (`--device` names another device, e.g. `cpu` for the plain
-PyTorch versions).  The other verbs exit non-zero with the ROADMAP item
-that will bring them: decompress, range extract, count, locate, GFF3
-search and --check.
+Gecotools.java:209-243), and every verb of the reference is served:
+
+* on the card (`--device` names another device, e.g. `cpu` for the plain
+  PyTorch versions; without a card and without `--device` these exit
+  non-zero): compress/index (`-i x.fa -o x.gcz`), decompress (`-i x.gcz
+  -o x.fa`, `-t N` reflow threads) and GFF3 batch search (`-i x.gcz -s
+  queries.fa`);
+* on the host, through the reference's own route, which runs there with
+  every backend (`gecoz_tpu.tools.driver`: `FMIndex.find`/`extract` on the
+  wavelet tree, no JAX): count (`-c [header] PATTERN`), locate (`-s header
+  PATTERN` or `-s PATTERN`), range extract (`-o chr.seq chrN [from [to]]`)
+  and `--check [--deep]`.
+
+`--backend` is the reference's tier switch and is refused here.
 """
 
 from __future__ import annotations
@@ -22,17 +34,16 @@ from gecoz_tpu.cli import parse_args
 
 HELP = __doc__
 
-_NOT_PORTED = {
-    "decompress and range extract": "ROADMAP A8",
-    "count (-c), locate and GFF3 search (-s)": "ROADMAP A7/A8",
-    "--check": "ROADMAP A8",
-}
 
-
-def _not_ported(what: str) -> int:
-    print(f"gecoz_tpu_torch: {what} is not ported yet ({_NOT_PORTED[what]}); "
-          "use python -m gecoz_tpu.cli", file=sys.stderr)
-    return 2
+def _device(name: str | None):
+    """The device of the card verbs, or None (reported) when there is no
+    card and none was named."""
+    from gecoz_tpu_torch.utils.device import device
+    try:
+        return device(name)
+    except RuntimeError as ex:
+        print(f"gecoz_tpu_torch: {ex}", file=sys.stderr)
+        return None
 
 
 def main(argv: list[str] | None = None) -> int:
@@ -61,11 +72,10 @@ def main(argv: list[str] | None = None) -> int:
     logging.basicConfig(level=getattr(logging, name, logging.WARNING),
                         format="%(message)s")
 
-    for flag in ("--backend", "-t", "--threads"):
-        if flag in params:
-            print(f"gecoz_tpu_torch: {flag} is not taken; the port encodes "
-                  "one block at a time on --device", file=sys.stderr)
-            return 1
+    if "--backend" in params:
+        print("gecoz_tpu_torch: --backend is not taken; the port runs on "
+              "--device", file=sys.stderr)
+        return 1
 
     inp = params.get("-i") or params.get("--input")
     if not inp:
@@ -75,28 +85,61 @@ def main(argv: list[str] | None = None) -> int:
     if not ipath.is_file():
         print(f"no input file found: {ipath}", file=sys.stderr)
         return 1
+    tvals = params.get("-t") or params.get("--threads") or []
+    threads = int(tvals[0]) if tvals else 1
     svals = params.get("--sampling") or []
     sampling = int(svals[0]) if svals else 32
 
     from gecoz_tpu.formats.gcz import check_format
+    from gecoz_tpu.tools import driver as host_driver
+    from gecoz_tpu_torch.tools import driver
 
     if "--check" in params:
-        return _not_ported("--check")
+        ok = host_driver.check(ipath, deep="--deep" in params)
+        return 0 if ok else 1
     if "-o" in params or "--output" in params:
         out = params.get("-o") or params.get("--output")
         if not out:
             print("no output file specified.", file=sys.stderr)
             return 1
+        opath = Path(out[0])
+        if check_format(ipath) and len(out) > 1:
+            start = int(out[2]) if len(out) > 2 else 0
+            end = int(out[3]) if len(out) > 3 else None
+            host_driver.extract_range(ipath, out[1], start, end, opath)
+            return 0
+        dev = _device(device)
+        if dev is None:
+            return 1
         if check_format(ipath):
-            return _not_ported("decompress and range extract")
-        from gecoz_tpu_torch.tools import driver
-        idx = params.get("-idx") or params.get("--index")
-        driver.index_fasta(ipath, Path(out[0]), Path(idx[0]) if idx else None,
-                           sampling=sampling, resume="--resume" in params,
-                           device=device)
-        return 0
-    if any(f in params for f in ("-s", "--search", "-c", "--count")):
-        return _not_ported("count (-c), locate and GFF3 search (-s)")
+            driver.decompress(ipath, opath, threads=threads, device=dev)
+        else:
+            idx = params.get("-idx") or params.get("--index")
+            driver.index_fasta(ipath, opath, Path(idx[0]) if idx else None,
+                               sampling=sampling,
+                               resume="--resume" in params, device=dev)
+    elif "-s" in params or "--search" in params:
+        search = params.get("-s") or params.get("--search")
+        if not search:
+            print("no search string/filename specified.", file=sys.stderr)
+            return 1
+        if len(search) == 1 and Path(search[0]).is_file():
+            dev = _device(device)
+            if dev is None:
+                return 1
+            driver.gff_search(ipath, Path(search[0]), device=dev)
+        else:
+            header = search[0] if len(search) > 1 else None
+            pattern = search[1] if len(search) > 1 else search[0]
+            host_driver.match(ipath, header, pattern, show_positions=True)
+    elif "-c" in params or "--count" in params:
+        count = params.get("-c") or params.get("--count")
+        if not count:
+            print("no search string specified.", file=sys.stderr)
+            return 1
+        header = count[0] if len(count) > 1 else None
+        pattern = count[1] if len(count) > 1 else count[0]
+        host_driver.match(ipath, header, pattern, show_positions=False)
     return 0
 
 

@@ -67,7 +67,8 @@ def _digest(nvcc: str, src: Path) -> str:
 
 def _build(nvcc: str, src: Path, so: Path) -> BuildInfo:
     BUILD.mkdir(parents=True, exist_ok=True)
-    tmp = so.with_name(f".{so.name}.{os.getpid()}.tmp")
+    tmp = so.with_name(
+        f".{so.name}.{os.getpid()}.{threading.get_ident()}.tmp")
     t0 = time.perf_counter()
     proc = subprocess.run([nvcc, *NVCC_FLAGS, "-o", str(tmp), str(src)],
                           capture_output=True, text=True)
@@ -79,18 +80,19 @@ def _build(nvcc: str, src: Path, so: Path) -> BuildInfo:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library built from `csrc/<name>.cu` (built if needed)."""
+    """The loaded library built from `csrc/<name>.cu` (built if needed).
+    nvcc runs outside the lock, so threads build different libraries at
+    once; a library two threads build twice is renamed into place whole."""
     with _LOCK:
         lib = _LIBS.get(name)
         if lib is not None:
             return lib
-        src = CSRC / f"{name}.cu"
-        nvcc = _nvcc()
-        so = BUILD / f"lib{name}-{_digest(nvcc, src)}.so"
-        if so.is_file():
-            BUILDS[name] = BuildInfo(so, 0.0, "")
-        else:
-            BUILDS[name] = _build(nvcc, src, so)
-        lib = ctypes.CDLL(str(so))
-        _LIBS[name] = lib
-        return lib
+    src = CSRC / f"{name}.cu"
+    nvcc = _nvcc()
+    so = BUILD / f"lib{name}-{_digest(nvcc, src)}.so"
+    info = BuildInfo(so, 0.0, "") if so.is_file() else _build(nvcc, src, so)
+    with _LOCK:
+        if name not in _LIBS:
+            BUILDS[name] = info
+            _LIBS[name] = ctypes.CDLL(str(so))
+        return _LIBS[name]

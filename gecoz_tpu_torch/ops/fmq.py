@@ -1,37 +1,60 @@
-"""FM-index query state on the card: bit planes, rank prefixes, sampled SA.
+"""FM-index query engine on the card: query state, tables, search, locate,
+decode.
 
-Port of the query-state build of gecoz_tpu/ops/fmq.py (`DeviceFMBlock`
-41-131, `_pack_bits_jit` 485, `_plane_jit` 499, `build_device_block_jit`
-507-578).  The queries themselves (occ, search, locate, decode) are not
-ported yet.
+Port of gecoz_tpu/ops/fmq.py: `DeviceFMBlock` (41-131), the query-state
+builds (`build_device_block_jit` 507-578, `build_device_block_parts_jit`
+394-448, `device_block_from_fm` 386), the tables (`with_lf_table` 210,
+`with_locate_table` 170, `with_kmer_table` 635), the queries (`occ_inclusive`
+591, `lf_batch` 616, `search_batch` 689, `locate_batch` 756,
+`decode_text_jit` 816); `decode_text_device` (923) is the port's
+`tools/driver.py::_device_decode`, phase by phase.  Every function
+runs on the device of the block's tensors.  The two pointer chases run
+through hand-written CUDA kernels on the card: backward search through K1
+(`ops/fmsearch.py`), the decode walks and the fused-table locate walk
+through K2 (`ops/lfwalk.py`); on CPU tensors they run their plain PyTorch
+versions.
 
 Differences from the reference:
 
-* `DeviceFMBlock` is a dataclass of tensors.  uint32 words are stored as
-  int32 tensors with the same bits (`block_to_numpy` views them back as
-  uint32).
+* `DeviceFMBlock` is a dataclass of tensors.  uint32 words and table rows
+  are stored as int32 tensors with the same bits (`block_to_numpy` views
+  them back as uint32), so bit 31 of an `lf_tab` row (the sampled mark)
+  reads as a negative int32.
 * The reference splits the plane layout at `_PAIR_LIMIT` into a fused
   (word, prefix) pair table for the TPU's (8, 128) tiling; the port keeps
   only the flat `plane_words`/`plane_pres`.
+* Permutations are composed by direct gather (`lf[lf]`), where the
+  reference composes them on the sort side; the tables are the same.
+* The decode lift uploads the BWT as uint8: the reference's 2-bit packed
+  upload and 4-bit text fetch (`utils/xfer.py`) cut bytes over its remote
+  relay and are not ported.
 * torch has no popcount: a SWAR popcount on int64 stands in.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass, fields
+from dataclasses import dataclass, fields, replace
 
 import numpy as np
 import torch
 
+from gecoz_tpu_torch.ops import fmsearch, lfwalk
+from gecoz_tpu_torch.ops.fmsearch import occ_inclusive
+from gecoz_tpu_torch.ops.fmsearch import popcount32 as _popcount32
 from gecoz_tpu_torch.ops.sa_device import check_strategy
 from gecoz_tpu_torch.ops.scan import cumsum_i32
 
 _I32 = torch.int32
+MAX_PLANES = 16
+
+# lf values below this pack with the symbol in one 32-bit row (tests
+# monkeypatch it to reach the plain row format at small sizes)
+_PACK_LIMIT = 1 << 23
 
 
 @dataclass
 class DeviceFMBlock:
-    """Query state of one block (the fields this port builds so far)."""
+    """Query state of one block."""
 
     bwt: torch.Tensor          # uint8 [n] BWT bytes
     plane_words: torch.Tensor  # u32 bits as int32 [sigma*W] bit words
@@ -45,7 +68,23 @@ class DeviceFMBlock:
     mark_rows: torch.Tensor    # int32 [m] sampled rows, ascending
     ssa_perm: torch.Tensor     # int32 [m] sampled SA values >> sf, row order
     ssa_inv: torch.Tensor      # int32 [m] inverse permutation
+    lf_tab: torch.Tensor       # u32 bits as int32 [n] fused LF rows:
+                               # (lf << 8) | sym below _PACK_LIMIT, else
+                               # plain lf; bit 31 = sampled row; empty [0]
+                               # when not built
+    lfk_tab: torch.Tensor      # u32 bits as int32 [n, 3] k=16 rows (LF^16,
+                               # two words of eight 4-bit plane codes), or
+                               # [n, 2] k=8 (LF^8, eight codes) / k=4 (LF^4,
+                               # four symbol bytes); empty [0, 2]
+    kmer_tab: torch.Tensor     # int32 [T, 2] (sp, ep) of every plane-coded
+                               # string of length 1..kmer_k, level j at
+                               # kmer_offset(kmer_bits, j); empty [0, 2]
+    loc_tab: torch.Tensor      # int32 [n, 2] (first sampled row on the
+                               # row's LF path, steps to it); empty [0, 2]
     sf: int                    # sampling factor
+    kmer_bits: int = 0         # bits per plane code of kmer_tab
+    kmer_k: int = 0            # longest seeded suffix
+    lfk_k: int = 0             # LF steps per lfk_tab row (4, 8 or 16)
 
     @property
     def n(self) -> int:
@@ -55,18 +94,54 @@ class DeviceFMBlock:
     def W(self) -> int:
         return (self.bwt.shape[0] + 31) // 32
 
+    @property
+    def has_lf(self) -> bool:
+        return self.lf_tab.shape[0] > 0
 
-_U32_FIELDS = ("plane_words", "plane_pres", "mark_words")
+    @property
+    def lf_packed(self) -> bool:
+        """lf_tab rows carry the symbol in the low byte (small blocks)."""
+        return self.bwt.shape[0] < _PACK_LIMIT
+
+    @property
+    def has_lfk(self) -> bool:
+        return self.lfk_tab.shape[0] > 0
+
+    @property
+    def lfk_steps(self) -> int:
+        """LF steps per fused-table read (4, 8 or 16)."""
+        return self.lfk_k
+
+    @property
+    def has_kmer(self) -> bool:
+        return self.kmer_tab.shape[0] > 0
+
+    @property
+    def has_loc(self) -> bool:
+        return self.loc_tab.shape[0] > 0
+
+
+_U32_FIELDS = ("plane_words", "plane_pres", "mark_words", "lf_tab",
+               "lfk_tab")
+_INT_FIELDS = ("sf", "kmer_bits", "kmer_k", "lfk_k")
+
+
+def _no_tables(dev) -> dict[str, torch.Tensor]:
+    """The four optional tables, empty (the reference's shapes)."""
+    return dict(lf_tab=torch.zeros(0, dtype=_I32, device=dev),
+                lfk_tab=torch.zeros((0, 2), dtype=_I32, device=dev),
+                kmer_tab=torch.zeros((0, 2), dtype=_I32, device=dev),
+                loc_tab=torch.zeros((0, 2), dtype=_I32, device=dev))
 
 
 def block_to_numpy(block: DeviceFMBlock) -> dict[str, np.ndarray]:
-    """Fields as host numpy arrays in the reference's dtypes (uint32 words;
-    `sf` as an int)."""
+    """Fields as host numpy arrays in the reference's dtypes (uint32 words
+    and table rows; the static ints as ints)."""
     out: dict[str, np.ndarray] = {}
     for f in fields(block):
         v = getattr(block, f.name)
-        if f.name == "sf":
-            out["sf"] = int(v)
+        if f.name in _INT_FIELDS:
+            out[f.name] = int(v)
             continue
         a = v.detach().cpu().numpy()
         out[f.name] = a.view(np.uint32) if f.name in _U32_FIELDS else a
@@ -76,12 +151,10 @@ def block_to_numpy(block: DeviceFMBlock) -> dict[str, np.ndarray]:
 def block_from_numpy(fields_np: dict, sf: int) -> DeviceFMBlock:
     """The port's block from the reference's `DeviceFMBlock` taken as a
     dict of numpy arrays (e.g. `{k: np.asarray(v) for k, v in
-    ref._asdict().items()}`).
+    ref._asdict().items()}`), tables and static ints included.
 
     A non-empty `plane_pairs` [sigma*W, 2] maps to the flat
-    `plane_words`/`plane_pres`; the reference's optional tables (lf_tab,
-    lfk_tab, kmer_tab, loc_tab) are not part of the port's block yet.
-    The tensors are on the CPU.
+    `plane_words`/`plane_pres`.  The tensors are on the CPU.
     """
     src = dict(fields_np)
     pairs = src.get("plane_pairs")
@@ -91,7 +164,8 @@ def block_from_numpy(fields_np: dict, sf: int) -> DeviceFMBlock:
         src["plane_pres"] = pairs[:, 1]
     kw = {}
     for f in fields(DeviceFMBlock):
-        if f.name == "sf":
+        if f.name in _INT_FIELDS:
+            kw[f.name] = int(src.get(f.name, 0))
             continue
         a = np.array(src[f.name])           # a copy, 0-d kept 0-d
         if f.name in _U32_FIELDS or a.dtype == np.uint32:
@@ -99,16 +173,11 @@ def block_from_numpy(fields_np: dict, sf: int) -> DeviceFMBlock:
         elif f.name != "bwt":
             a = a.astype(np.int32)
         kw[f.name] = torch.from_numpy(a)
-    return DeviceFMBlock(sf=int(sf), **kw)
+    kw["sf"] = int(sf)
+    return DeviceFMBlock(**kw)
 
 
-def _popcount32(x: torch.Tensor) -> torch.Tensor:
-    """Bit count of 32-bit words held in int64 [0, 2^32) (SWAR)."""
-    x = x - ((x >> 1) & 0x55555555)
-    x = (x & 0x33333333) + ((x >> 2) & 0x33333333)
-    x = (x + (x >> 4)) & 0x0F0F0F0F
-    return (((x * 0x01010101) & 0xFFFFFFFF) >> 24).to(_I32)
-
+# -- query-state build -------------------------------------------------------
 
 def _pack_bits(bits: torch.Tensor) -> torch.Tensor:
     """0/1 (any int/bool dtype) [n] -> uint32 words [ceil(n/32)] held in
@@ -136,6 +205,27 @@ def _u32_as_i32(words: torch.Tensor) -> torch.Tensor:
     return (words - ((words >> 31) << 32)).to(_I32)
 
 
+def _symbol_planes(bwt: torch.Tensor, symbols: tuple[int, ...]):
+    """(plane_words, plane_pres, c, sym_plane) of the BWT over the static
+    alphabet `symbols` (plane order); symbol counts fall out of the plane
+    popcounts."""
+    dev = bwt.device
+    planes, pres, totals = [], [], []
+    sym_plane = np.full(256, -1, dtype=np.int32)
+    for row, s in enumerate(symbols):
+        sym_plane[s] = row
+        w, p = _plane(bwt == s)
+        planes.append(w)
+        pres.append(p)
+        totals.append(p[-1] + _popcount32(w[-1]))
+    counts = torch.zeros(256, dtype=_I32, device=dev)
+    counts[torch.tensor(symbols, dtype=torch.int64, device=dev)] = \
+        torch.stack(totals)
+    c = torch.cat([counts.new_zeros(1), cumsum_i32(counts)])
+    return (_u32_as_i32(torch.cat(planes)), torch.cat(pres), c,
+            torch.from_numpy(sym_plane).to(dev))
+
+
 def build_device_block(bwt: torch.Tensor, sa: torch.Tensor, sf: int,
                        symbols: tuple[int, ...],
                        strategy: str = "sort") -> DeviceFMBlock:
@@ -153,21 +243,7 @@ def build_device_block(bwt: torch.Tensor, sa: torch.Tensor, sf: int,
     n = bwt.shape[0]
     rate = 1 << sf
     m = (n + rate - 1) // rate
-
-    planes, pres, totals = [], [], []
-    sym_plane = np.full(256, -1, dtype=np.int32)
-    for row, s in enumerate(symbols):
-        sym_plane[s] = row
-        w, p = _plane(bwt == s)
-        planes.append(w)
-        pres.append(p)
-        totals.append(p[-1] + _popcount32(w[-1]))
-
-    # symbol counts fall out of the plane popcounts
-    counts = torch.zeros(256, dtype=_I32, device=dev)
-    counts[torch.tensor(symbols, dtype=torch.int64, device=dev)] = \
-        torch.stack(totals)
-    c = torch.cat([counts.new_zeros(1), cumsum_i32(counts)])
+    words, pres, c, sym_plane = _symbol_planes(bwt, symbols)
 
     marked = (sa & (rate - 1)) == 0
     mark_words, mark_pre = _plane(marked)
@@ -189,9 +265,364 @@ def build_device_block(bwt: torch.Tensor, sa: torch.Tensor, sf: int,
     wrap = torch.argmax((sa == 0).to(_I32)).to(_I32)
 
     return DeviceFMBlock(
-        bwt=bwt,
-        plane_words=_u32_as_i32(torch.cat(planes)),
-        plane_pres=torch.cat(pres),
-        c=c, sym_plane=torch.from_numpy(sym_plane).to(dev), wrap_row=wrap,
+        bwt=bwt, plane_words=words, plane_pres=pres, c=c,
+        sym_plane=sym_plane, wrap_row=wrap,
         mark_words=_u32_as_i32(mark_words), mark_pre=mark_pre,
-        mark_rows=mark_rows, ssa_perm=perm, ssa_inv=inv, sf=sf)
+        mark_rows=mark_rows, ssa_perm=perm, ssa_inv=inv, sf=sf,
+        **_no_tables(dev))
+
+
+def build_device_block_parts(bwt: torch.Tensor, mark_rows: torch.Tensor,
+                             perm: torch.Tensor, wrap_row: int, sf: int,
+                             symbols: tuple[int, ...]) -> DeviceFMBlock:
+    """Query state on the BWT's device from the decode-path parts: the BWT
+    plus the .gcx sampled rows (int32, ascending) and sampled values >> sf
+    (int32, row order); no suffix array (reference
+    `build_device_block_parts_jit`)."""
+    dev = bwt.device
+    n = bwt.shape[0]
+    m = perm.shape[0]
+    words, pres, c, sym_plane = _symbol_planes(bwt, symbols)
+    marked = torch.zeros(n, dtype=torch.uint8, device=dev)
+    marked[mark_rows.long()] = 1
+    mark_words, mark_pre = _plane(marked)
+    inv = torch.zeros(m, dtype=_I32, device=dev)
+    inv[perm.long()] = torch.arange(m, dtype=_I32, device=dev)
+    return DeviceFMBlock(
+        bwt=bwt, plane_words=words, plane_pres=pres, c=c,
+        sym_plane=sym_plane,
+        wrap_row=torch.tensor(wrap_row, dtype=_I32, device=dev),
+        mark_words=_u32_as_i32(mark_words), mark_pre=mark_pre,
+        mark_rows=mark_rows.to(_I32), ssa_perm=perm.to(_I32), ssa_inv=inv,
+        sf=int(sf), **_no_tables(dev))
+
+
+def device_block_from_fm(fm, device) -> DeviceFMBlock:
+    """Lift a host FMIndex (gecoz_tpu.index.fm) onto `device`: the BWT
+    (decoded on the host) and the two .gcx arrays go up, planes, marks and
+    c are built there."""
+    fm._require_index()
+    counts = fm.hswt.symbol_counts()
+    symbols = tuple(int(x) for x in np.flatnonzero(counts))
+    if len(symbols) > MAX_PLANES:
+        raise ValueError(f"alphabet of {len(symbols)} symbols exceeds the "
+                         "plane engine; use the host FMIndex path")
+    rows, _ = fm.index.sampled_rows()
+    dev = torch.device(device)
+
+    def up(a, dtype):
+        return torch.from_numpy(np.ascontiguousarray(a, dtype=dtype)).to(dev)
+    return build_device_block_parts(
+        up(fm.bwt, np.uint8), up(np.sort(rows), np.int32),
+        up(fm.index.wsa.perm, np.int32), int(fm.wrap_row),
+        int(fm.index.sampling_factor), symbols)
+
+
+# -- LF mapping and its tables -----------------------------------------------
+
+def _corrected_lf(block: DeviceFMBlock) -> torch.Tensor:
+    """Full corrected LF mapping as int32 [n].
+
+    One stable sort of the BWT yields the plain LF (stable argsort groups
+    by symbol preserving row order, which IS C[sym]+rank); the separator
+    correction is a cumsum (the scan kernel on the card) over the zero
+    plane (see gecoz_tpu/index/fm.py).  Recovered elementwise from an
+    already-built fused table when present."""
+    if block.has_lf:
+        return _lf_from_row(block, block.lf_tab)
+    n = block.n
+    dev = block.bwt.device
+    iota = torch.arange(n, dtype=_I32, device=dev)
+    order = torch.sort(block.bwt, stable=True).indices
+    lf = torch.empty(n, dtype=_I32, device=dev)
+    lf[order] = iota
+    del order
+    is_zero = block.bwt == 0
+    zero_rank = cumsum_i32(is_zero.to(_I32)) - 1
+    corr = 1 + zero_rank - (block.wrap_row < iota).to(_I32)
+    lf = torch.where(is_zero, corr, lf)
+    return torch.where(iota == block.wrap_row, 0, lf)
+
+
+def _marked_bits(block: DeviceFMBlock) -> torch.Tensor:
+    """Per-row sampled flag as int32 [n], expanded from the mark plane."""
+    shifts = torch.arange(32, dtype=_I32, device=block.mark_words.device)
+    mb = (block.mark_words[:, None] >> shifts[None, :]) & 1
+    return mb.reshape(-1)[:block.n]
+
+
+def _gather(t: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """t[idx] along dim 0 with int32 indices (no int64 index copy)."""
+    return torch.index_select(t, 0, idx)
+
+
+def with_locate_table(block: DeviceFMBlock) -> DeviceFMBlock:
+    """Attach the locate table: for every BWT row, the first SAMPLED row on
+    its LF path and the step distance to it.
+
+    Built by sf pointer-doubling rounds: round t extends every row's known
+    path from 2^t to 2^(t+1) steps through jump = LF^(2^t), composed by
+    gather (hit[jump], d[jump], jump[jump]).  Every row reaches a sampled
+    row within rate steps, so sf rounds always converge; a locate is then
+    one row read plus the sampled-value lookup."""
+    n = block.n
+    if n == 0 or block.has_loc:
+        return block
+    iota = torch.arange(n, dtype=_I32, device=block.bwt.device)
+    jump = _corrected_lf(block)                  # LF^1, a true permutation
+    done = _marked_bits(block)
+    hit = torch.where(done == 1, iota, 0)
+    d = torch.zeros(n, dtype=_I32, device=iota.device)
+    del iota
+    # invariant before round t: (done, hit, d) cover steps [0, 2^t),
+    # jump = LF^(2^t); rows stay in play until their first mark
+    for t in range(block.sf):
+        live = done == 0
+        hit = torch.where(live, _gather(hit, jump), hit)
+        d = torch.where(live, (1 << t) + _gather(d, jump), d)
+        done = done | _gather(done, jump)
+        jump = _gather(jump, jump)
+    return replace(block, loc_tab=torch.stack([hit, d], dim=1))
+
+
+def with_lf_table(block: DeviceFMBlock, decode: bool = True) -> DeviceFMBlock:
+    """Attach the fused LF table.
+
+    Decode/locate steps then cost ONE row read instead of three (bwt +
+    plane + prefix); bit 31 of each row marks a sampled row, so a locate
+    walk needs one read per step.  With decode=True the fused k-step
+    decode table is also built: LF^k plus the k symbols emitted along the
+    way.  k = 16 (12-byte rows) when the sampling rate divides by 16, 8
+    when it divides by 8, else 4; locate-only callers pass decode=False.
+    """
+    n = block.n
+    if n == 0 or block.has_lf:
+        return block
+    lf = _corrected_lf(block)
+    marked31 = _marked_bits(block) << 31
+    if n < _PACK_LIMIT:
+        tab = (lf << 8) | block.bwt.to(_I32) | marked31
+    else:
+        # rows don't fit 24 bits: plain lf; the steps that also need the
+        # symbol read bwt separately
+        tab = lf | marked31
+    del marked31
+    if not decode:
+        return replace(block, lf_tab=tab)
+
+    # permutation composition lf[lf[i]] by direct gather; the codes of the
+    # steps taken ride along the same gathers (q = codes[lf])
+    rate = 1 << block.sf
+    if rate % 8 == 0:
+        # eight 4-bit PLANE codes per word (sigma <= 16), decoded back to
+        # bytes through a 16-entry map in the walk
+        pc = _gather(block.sym_plane, block.bwt.to(_I32)).clamp(min=0)
+        lf2, c2 = _gather(lf, lf), pc | (_gather(pc, lf) << 4)
+        del pc
+        lf4, c4 = _gather(lf2, lf2), c2 | (_gather(c2, lf2) << 8)
+        del lf2, c2
+        lf8, c8 = _gather(lf4, lf4), c4 | (_gather(c4, lf4) << 16)
+        del lf4, c4
+        if rate % 16 == 0:
+            lfk = torch.stack([_gather(lf8, lf8), c8, _gather(c8, lf8)], 1)
+            return replace(block, lf_tab=tab, lfk_tab=lfk, lfk_k=16)
+        return replace(block, lf_tab=tab, lfk_tab=torch.stack([lf8, c8], 1),
+                       lfk_k=8)
+    sym = block.bwt.to(_I32)
+    lf2, s2 = _gather(lf, lf), sym | (_gather(sym, lf) << 8)
+    lf4, s4 = _gather(lf2, lf2), s2 | (_gather(s2, lf2) << 16)
+    return replace(block, lf_tab=tab, lfk_tab=torch.stack([lf4, s4], 1),
+                   lfk_k=4)
+
+
+def _lf_from_row(block: DeviceFMBlock, v: torch.Tensor) -> torch.Tensor:
+    """LF value out of a fused-table row (strips the bit-31 mark bit)."""
+    if block.lf_packed:
+        return (v >> 8) & 0x7FFFFF
+    return v & 0x7FFFFFFF
+
+
+def _lf_next(block: DeviceFMBlock, idx: torch.Tensor) -> torch.Tensor:
+    """Next row only (locate walks don't need the symbol)."""
+    return _lf_from_row(block, block.lf_tab[idx.long()])
+
+
+def lf_batch(block: DeviceFMBlock, idx: torch.Tensor) -> torch.Tensor:
+    """Corrected LF mapping for rows `idx` (batched)."""
+    if block.has_lf:
+        return _lf_next(block, idx)
+    syms = block.bwt[idx.long()].to(_I32)
+    occ = occ_inclusive(block, syms, idx)       # inclusive, >= 1
+    plain = block.c[syms.long()] + occ - 1
+    sep = occ - (block.wrap_row < idx).to(_I32)
+    out = torch.where(syms == 0, sep, plain)
+    return torch.where(idx == block.wrap_row, 0, out)
+
+
+# -- backward search ---------------------------------------------------------
+
+def with_kmer_table(block: DeviceFMBlock, k: int | None = None
+                    ) -> DeviceFMBlock:
+    """Attach the stacked k-mer seed table.
+
+    Level j holds (sp, ep) after backward-searching every plane-coded
+    string of length j, for j = 1..k; a query's last min(len, k)
+    characters are then ONE table read instead of min(len, k)-1 search
+    steps.  Built bottom-up: level j+1 extends level j by one earlier
+    character, all codes stepped in one vectorized occ batch.
+    """
+    if block.n == 0 or block.has_kmer:
+        return block
+    nplanes = block.plane_words.shape[0] // max(block.W, 1)
+    bits = max(1, (nplanes - 1).bit_length())
+    if k is None:
+        # table capped at ~2^19 rows for small blocks, 2^24 for blocks
+        # >= 4 MiB: at genomic sigma (6 planes -> 3 bits) that is k = 8
+        cap = 24 if block.n >= (1 << 22) else 19
+        k = max(1, min(8, cap // bits,
+                       int(max(block.n, 2)).bit_length() // bits))
+    dev = block.c.device
+    plane_sym = code_map(block, 1 << bits).long()
+    c = block.c
+    levels = [torch.stack([c[plane_sym], c[plane_sym + 1] - 1], dim=1)]
+    for j in range(1, k):
+        codes = torch.arange(1 << (bits * (j + 1)), dtype=torch.int64,
+                             device=dev)
+        prev = levels[j - 1][codes & ((1 << (bits * j)) - 1)]
+        ch = plane_sym[codes >> (bits * j)]     # the added, earlier char
+        sp, ep = prev[:, 0], prev[:, 1]
+        nsp = c[ch] + occ_inclusive(block, ch, sp - 1)
+        nep = c[ch] + occ_inclusive(block, ch, ep) - 1
+        dead = sp > ep
+        levels.append(torch.stack([torch.where(dead, sp, nsp),
+                                   torch.where(dead, ep, nep)], dim=1))
+    return replace(block, kmer_tab=torch.cat(levels, dim=0),
+                   kmer_bits=bits, kmer_k=k)
+
+
+def search_batch(block: DeviceFMBlock, patterns: torch.Tensor,
+                 lengths: torch.Tensor):
+    """Backward-search many patterns (kernel K1 on the card).
+
+    `patterns` is uint8 [B, L] right-aligned (last character at column
+    L-1, leading columns zero-padded); `lengths` is int32 [B].  Returns
+    int32 (sp, ep) inclusive row ranges; ep < sp means no match.  With a
+    k-mer table attached each query's last min(len, k) characters resolve
+    in one table read."""
+    return fmsearch.backward_search(block, patterns, lengths)
+
+
+# -- locate ------------------------------------------------------------------
+
+def _sampled_value(block: DeviceFMBlock, idx: torch.Tensor):
+    """(is_sampled, sa_value) for rows idx."""
+    return lfwalk.sampled_value(block.mark_words, block.mark_pre,
+                                block.ssa_perm, block.sf, idx)
+
+
+def locate_batch(block: DeviceFMBlock, rows: torch.Tensor) -> torch.Tensor:
+    """SA values (int32) for `rows` (int32, each in [0, n)).
+
+    Three branches, as the reference: with the locate table one row read
+    per query; with the fused LF table a walk of one read per step to the
+    nearest sampled row (kernel K2 on the card); else the table-free walk
+    through the planes."""
+    if block.has_loc:
+        row = block.loc_tab[rows.long()]
+        _, val = _sampled_value(block, row[:, 0])
+        return val + row[:, 1]
+
+    if block.has_lf:
+        return lfwalk.locate_walks(block.lf_tab, rows, block.mark_words,
+                                   block.mark_pre, block.ssa_perm, block.sf,
+                                   block.lf_packed)
+
+    idx = rows
+    steps = torch.zeros_like(rows)
+    out = torch.full_like(rows, -1)
+    live = torch.ones(rows.shape, dtype=torch.bool, device=rows.device)
+    for _ in range((1 << block.sf) + 1):
+        sampled, val = _sampled_value(block, idx)
+        out = torch.where(live & sampled, val + steps, out)
+        live = live & ~sampled
+        idx = torch.where(live, lf_batch(block, idx), idx)
+        steps = steps + live.to(_I32)
+    return out
+
+
+# -- full-text decode --------------------------------------------------------
+
+def _row_with_sa(block: DeviceFMBlock, value: torch.Tensor) -> torch.Tensor:
+    """Row whose SA value is `value` (a sampled multiple of the rate): two
+    small gathers through the select table, batched."""
+    j = block.ssa_inv[(value >> block.sf).long()]
+    return block.mark_rows[j.long()]
+
+
+def code_map(block: DeviceFMBlock, size: int = 16) -> torch.Tensor:
+    """uint8 [size]: the byte whose plane row is r (0 where none is)."""
+    live = torch.nonzero(block.sym_plane >= 0).flatten()
+    out = torch.zeros(size, dtype=torch.uint8, device=live.device)
+    out[block.sym_plane[live].long()] = live.to(torch.uint8)
+    return out
+
+
+def _walk_plain(block: DeviceFMBlock, seeds: torch.Tensor,
+                rate: int) -> torch.Tensor:
+    """Per-step walks through the planes (no fused table built)."""
+    out = torch.empty((seeds.shape[0], rate), dtype=torch.uint8,
+                      device=seeds.device)
+    idx = seeds
+    for j in range(rate):
+        out[:, rate - 1 - j] = block.bwt[idx.long()]
+        idx = lf_batch(block, idx)
+    return out
+
+
+def _walks(block: DeviceFMBlock, seeds: torch.Tensor,
+           rate: int) -> torch.Tensor:
+    """Per-step walks: the fused table through K2, else the planes."""
+    if block.has_lf:
+        mode = "packed" if block.lf_packed else "plain"
+        return lfwalk.decode_walks(block.lf_tab, seeds, rate, mode,
+                                   bwt=block.bwt)
+    return _walk_plain(block, seeds, rate)
+
+
+def decode_text(block: DeviceFMBlock) -> torch.Tensor:
+    """Reconstruct the whole generalized string (uint8 [n]) on the block's
+    device (reference `decode_text_jit`).
+
+    One walk per sampling interval: walk w covers positions
+    [w*rate, (w+1)*rate) and is seeded at the sampled row with SA value
+    (w+1)*rate, so step j of every full walk writes column rate-1-j.  The
+    ragged tail [W*rate, n-1) is one more walk of tail_len steps from row
+    0 (SA value n-1); the final terminator goes at n-1.
+    """
+    n = block.n
+    dev = block.bwt.device
+    if n == 0:
+        return torch.zeros(0, dtype=torch.uint8, device=dev)
+    rate = 1 << block.sf
+    W = (n - 1) // rate                  # full walks
+    tail_len = (n - 1) - W * rate        # 0 <= tail_len < rate
+
+    seeds = _row_with_sa(block, (torch.arange(W, dtype=_I32, device=dev)
+                                 + 1) * rate)
+    k = block.lfk_steps
+    if W and block.has_lfk and rate % k == 0:
+        out = lfwalk.decode_walks(block.lfk_tab, seeds, rate, f"lfk{k}",
+                                  code_map=code_map(block))
+    elif W:
+        out = _walks(block, seeds, rate)
+    else:
+        out = torch.zeros((0, rate), dtype=torch.uint8, device=dev)
+
+    parts = [out.reshape(-1)]
+    if tail_len:
+        # tail walk: from row 0 (suffix n-1); step j emits position n-2-j
+        zero = torch.zeros(1, dtype=_I32, device=dev)
+        parts.append(_walks(block, zero, tail_len).reshape(-1))
+    parts.append(torch.zeros(1, dtype=torch.uint8, device=dev))
+    return torch.cat(parts)
+

@@ -1,15 +1,17 @@
-"""Index one block on the card: suffix sort -> BWT -> query state.
+"""End-to-end steps on the card: index one block, and index-and-query.
 
-Port of gecoz_tpu/ops/pipeline.py::index_block (26-60), the step the
-reference's `bench.py` headline times.  `index_and_query` waits for the
-query engine (ROADMAP A7).
+Port of gecoz_tpu/ops/pipeline.py: `index_block` (26-60), the step the
+reference's `bench.py` headline times, and `index_and_query` (63-78),
+which runs every stage of the engine once.
 """
 
 from __future__ import annotations
 
 import torch
 
-from gecoz_tpu_torch.ops.fmq import DeviceFMBlock, build_device_block
+from gecoz_tpu_torch.ops.fmq import (DeviceFMBlock, build_device_block,
+                                     decode_text, locate_batch, search_batch,
+                                     with_kmer_table, with_lf_table)
 from gecoz_tpu_torch.ops.sa_device import (_suffix_array, _suffix_array_runs,
                                            bwt_device)
 from gecoz_tpu_torch.ops.sa_host import dense_table
@@ -46,3 +48,20 @@ def index_block(s: torch.Tensor, sf: int = 5,
     else:
         raise ValueError(f"sa_impl must be runs or kmer, got {sa_impl!r}")
     return build_device_block(bwt, sa, sf, symbols, strategy=strategy)
+
+
+def index_and_query(s: torch.Tensor, patterns: torch.Tensor,
+                    lengths: torch.Tensor, sf: int = 5,
+                    symbols: tuple[int, ...] = DNA_SYMBOLS,
+                    sa_impl: str = "runs"):
+    """One full forward step: build the index, run a search batch, locate
+    every hit range's start row, and decode the text back.
+
+    Returns (sp, ep, located_start, text).  The locate reads row sp
+    clamped into [0, n), as the reference's gather clamps an empty range's
+    sp = n."""
+    block = with_kmer_table(with_lf_table(
+        index_block(s, sf=sf, symbols=symbols, sa_impl=sa_impl)))
+    sp, ep = search_batch(block, patterns, lengths)
+    start_vals = locate_batch(block, sp.clamp(0, block.n - 1))
+    return sp, ep, start_vals, decode_text(block)

@@ -1,0 +1,81 @@
+"""Batched multi-pattern FM search on the card: thousands of queries at once.
+
+Port of gecoz_tpu/tools/batch_search.py::find_batched (26-81): all
+patterns are right-aligned into one matrix (`pack_patterns`, reused from
+gecoz_tpu), one `search_batch` per block resolves every row range on the
+card (kernel K1), one `locate_batch` resolves every hit row, and the
+per-sequence split follows GSSA.find:160-185 on the host.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from gecoz_tpu.tools.batch_search import pack_patterns
+from gecoz_tpu.utils import metrics
+from gecoz_tpu_torch.ops import fmq
+from gecoz_tpu_torch.utils.device import device as pick_device
+from gecoz_tpu_torch.utils.device import hbm_budget, sync
+
+# bytes per text character the locate table's build keeps in flight; past
+# the card's budget the fused-LF walk (kernel K2) locates instead
+LOCATE_TABLE_BYTES_PER_CHAR = 40
+
+
+def search_tables(fm, dev: torch.device) -> fmq.DeviceFMBlock:
+    """The block's query state with the k-mer seed table and either the
+    locate table or, past the memory budget, the fused LF table."""
+    budget = hbm_budget(dev)
+    base = fmq.with_kmer_table(fmq.device_block_from_fm(fm, dev))
+    if budget is None or fm.length * LOCATE_TABLE_BYTES_PER_CHAR <= budget:
+        return fmq.with_locate_table(base)
+    return fmq.with_lf_table(base, decode=False)
+
+
+def find_batched(fm, patterns: list[bytes],
+                 device=None) -> list[dict[int, np.ndarray]]:
+    """Per-pattern {sequence: positions} over one block, searched and
+    located on `device` (default: the card)."""
+    if not patterns:
+        return []
+    dev = pick_device(device)
+    with metrics.phase("search.tables", fm.length):
+        device_block = search_tables(fm, dev)
+        sync(dev)
+    arr, lens = pack_patterns(patterns)
+    with metrics.phase("search.batch", arr.nbytes):
+        sp, ep = fmq.search_batch(device_block, torch.from_numpy(arr).to(dev),
+                                  torch.from_numpy(lens).to(dev))
+        sp = sp.cpu().numpy().astype(np.int64)
+        ep = ep.cpu().numpy().astype(np.int64)
+
+    counts = np.maximum(ep - sp + 1, 0)
+    out: list[dict[int, np.ndarray]] = [dict() for _ in patterns]
+    if int(counts.sum()) == 0:
+        return out
+
+    # expand all hit rows and locate them in one batch
+    rows = np.concatenate([np.arange(s, e + 1)
+                           for s, e, c in zip(sp, ep, counts) if c > 0])
+    with metrics.phase("search.locate", rows.nbytes):
+        values = fmq.locate_batch(
+            device_block, torch.from_numpy(rows.astype(np.int32)).to(dev))
+        values = values.cpu().numpy().astype(np.int64)
+
+    e_arr = fm.e
+    offs = np.concatenate([[0], np.cumsum(counts)])
+    for i, c in enumerate(counts):
+        if c == 0:
+            continue
+        hits = np.sort(values[offs[i]:offs[i + 1]])
+        idx1 = 0
+        res = {}
+        for j in range(len(e_arr)):
+            idx2 = int(np.searchsorted(hits, e_arr[j], side="left"))
+            if idx2 > idx1:
+                base = int(e_arr[j - 1]) + 1 if j > 0 else 0
+                res[j] = hits[idx1:idx2] - base
+                idx1 = idx2
+        out[i] = res
+    return out

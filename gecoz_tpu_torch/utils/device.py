@@ -1,4 +1,5 @@
-"""Device selection (counterpart of the probe in gecoz_tpu/utils/accel.py).
+"""Device selection and memory budget (counterpart of the probe and of
+`device_hbm_bytes` in gecoz_tpu/utils/accel.py).
 
 The port runs on the card.  `device()` returns `cuda:0` and raises when
 there is none: a measurement or encode that finds no card fails instead of
@@ -7,6 +8,8 @@ quietly running on the CPU.  The CPU is used only when a caller names it
 """
 
 from __future__ import annotations
+
+import os
 
 import torch
 
@@ -25,3 +28,21 @@ def sync(dev: torch.device) -> None:
     """Wait for the work queued on `dev` (no-op on the CPU)."""
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
+
+
+def hbm_budget(dev: torch.device) -> int | None:
+    """Bytes a new table may take on `dev`, or None on the CPU (host RAM
+    is not the constraint).
+
+    What the driver reports free plus what torch's allocator holds cached
+    (reserved, not allocated): after one large block the cache holds most
+    of the card, and torch serves new tensors from it.  GECOZ_HBM_BYTES
+    overrides, as it does the reference's `device_hbm_bytes`."""
+    env = os.environ.get("GECOZ_HBM_BYTES")
+    if env:
+        return int(env)
+    if dev.type != "cuda":
+        return None
+    free, _ = torch.cuda.mem_get_info(dev)
+    return free + (torch.cuda.memory_reserved(dev)
+                   - torch.cuda.memory_allocated(dev))

@@ -1,4 +1,4 @@
-"""The port on the card: CUDA scan kernel and encode path (marker `gpu`).
+"""The port on the card: CUDA kernels, encode and query paths (marker `gpu`).
 
 These tests need a CUDA card and skip elsewhere, deciding inside a fixture.
 They import no JAX, so they also run where JAX is absent (the card's
@@ -16,7 +16,7 @@ import torch
 
 import gecoz_tpu_torch  # noqa: F401 - keeps gecoz_tpu from importing JAX
 from gecoz_tpu.ops.sa import bwt_from_sa, suffix_array_numpy
-from gecoz_tpu_torch.ops import scan
+from gecoz_tpu_torch.ops import fmq, fmsearch, lfwalk, scan
 from gecoz_tpu_torch.ops.fmq import block_to_numpy
 from gecoz_tpu_torch.ops.pipeline import index_block
 from gecoz_tpu_torch.ops.sa_device import suffix_array_device
@@ -102,3 +102,122 @@ def test_encode_on_card_equals_host_tier(cuda, gen, tmp_path):
     assert encode_block(s, ["a", "b"], device=cuda) == want
     for name in ("cumsum_i32", "fill_rev_i32", "fill_fwd_i32"):
         assert scan.LAUNCHES[name] > 0, name
+
+
+def _pack(pats):
+    L = max(len(p) for p in pats)
+    arr = np.zeros((len(pats), L), np.uint8)
+    for i, p in enumerate(pats):
+        arr[i, L - len(p):] = np.frombuffer(p, np.uint8)
+    return arr, np.asarray([len(p) for p in pats], np.int32)
+
+
+def _card_block(cuda, gen, sf=5):
+    s = _genomic(gen)
+    return s, index_block(torch.from_numpy(s).to(cuda), sf=sf)
+
+
+def test_fm_search_kernel_matches_plain(cuda, gen):
+    s, blk = _card_block(cuda, gen)
+    starts = gen.integers(0, len(s) - 160, size=3000)
+    lens = gen.integers(1, 150, size=3000)
+    pats = [bytes(s[a:a + n]) for a, n in zip(starts, lens)]
+    pats += [b"Z", b"AZ", b"ACGTZ", b"\0", b"N" * 40, b"ACGT" * 30]
+    for block in (blk, fmq.with_kmer_table(blk), fmq.with_kmer_table(blk, 3)):
+        for sub in (pats, [p[-1:] for p in pats]):         # L = 1 too
+            arr, ln = _pack(sub)
+            a = torch.from_numpy(arr).to(cuda)
+            n = torch.from_numpy(ln).to(cuda)
+            before = fmsearch.LAUNCHES["fm_search"]
+            got = fmq.search_batch(block, a, n)
+            torch.cuda.synchronize()
+            assert fmsearch.LAUNCHES["fm_search"] == before + 1
+            want = fmsearch.backward_search_ref(block, a, n)
+            assert torch.equal(got[0], want[0])
+            assert torch.equal(got[1], want[1])
+
+
+def test_fm_search_lengths_past_width(cuda, gen):
+    """A length greater than the pattern width stops at column 0, as the
+    plain version does, and reads nothing left of its own row."""
+    s, blk = _card_block(cuda, gen)
+    starts = gen.integers(0, len(s) - 40, size=500)
+    pats = [bytes(s[a:a + 30]) for a in starts]
+    arr, ln = _pack(pats)
+    a = torch.from_numpy(arr).to(cuda)
+    for block in (blk, fmq.with_kmer_table(blk)):
+        exact = fmq.search_batch(block, a, torch.from_numpy(ln).to(cuda))
+        for extra in (1, 7, 1 << 20):
+            n = torch.from_numpy(ln + extra).to(cuda)
+            got = fmq.search_batch(block, a, n)
+            want = fmsearch.backward_search_ref(block, a, n)
+            assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+            assert torch.equal(got[0], exact[0]) and torch.equal(got[1], exact[1])
+
+
+@pytest.mark.parametrize("sf,packed", [(5, True), (4, True), (3, True),
+                                       (2, True), (1, True), (5, False),
+                                       (3, False)])
+def test_lf_walk_kernels_match_plain(cuda, gen, monkeypatch, sf, packed):
+    """Decode walks in every mode (lfk16/8/4 at rates 32/16/8/4, the
+    per-step packed and plain rows) and locate walks, against the plain
+    versions on the card and the text and SA on the host."""
+    if not packed:
+        monkeypatch.setattr(fmq, "_PACK_LIMIT", 16)
+    s, blk = _card_block(cuda, gen, sf)
+    blk = fmq.with_lf_table(blk)
+    rate = 1 << sf
+    seeds = torch.from_numpy(gen.integers(0, blk.n, 5000).astype(
+        np.int32)).to(cuda)
+    modes = ["packed" if packed else "plain"]
+    if rate % blk.lfk_k == 0:
+        modes.append(f"lfk{blk.lfk_k}")
+    for mode in modes:
+        tab = blk.lfk_tab if mode.startswith("lfk") else blk.lf_tab
+        kw = dict(bwt=blk.bwt, code_map=fmq.code_map(blk))
+        before = lfwalk.LAUNCHES["decode"]
+        got = lfwalk.decode_walks(tab, seeds, rate, mode, **kw)
+        torch.cuda.synchronize()
+        assert lfwalk.LAUNCHES["decode"] == before + 1
+        assert torch.equal(got, lfwalk.decode_walks_ref(tab, seeds, rate,
+                                                        mode, **kw)), mode
+    assert np.array_equal(fmq.decode_text(blk).cpu().numpy(), s)
+    rows = seeds[:2000]
+    args = (blk.lf_tab, rows, blk.mark_words, blk.mark_pre, blk.ssa_perm,
+            blk.sf, packed)
+    got = lfwalk.locate_walks(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(got, lfwalk.locate_walks_ref(*args))
+    sa = suffix_array_numpy(s)
+    assert np.array_equal(got.cpu().numpy(), sa[rows.cpu().numpy()])
+
+
+def test_decompress_and_search_on_card_equal_host_tier(cuda, gen, tmp_path):
+    import io
+
+    from gecoz_tpu.tools import driver as host_driver
+    from gecoz_tpu_torch.tools import driver
+    seqs = [gen.choice(np.frombuffer(b"ACGTN", np.uint8), size=n)
+            for n in (70000, 3000, 51)]
+    fa = tmp_path / "g.fa"
+    with open(fa, "wb") as f:
+        for i, q in enumerate(seqs):
+            f.write(b">s%d\n" % i + q.tobytes() + b"\n")
+    gcz = tmp_path / "g.gcz"
+    driver.index_fasta(fa, gcz, device=cuda)
+    qf = tmp_path / "q.fa"
+    with open(qf, "wb") as f:
+        for i in range(50):
+            a = int(gen.integers(0, 60000))
+            f.write(b">q%d\n" % i + seqs[0][a:a + 20 + i].tobytes() + b"\n")
+    fmsearch.reset_launches()
+    lfwalk.reset_launches()
+    port, host = tmp_path / "port.fa", tmp_path / "host.fa"
+    driver.decompress(gcz, port, device=cuda)
+    host_driver.decompress(gcz, host, backend="numpy")
+    assert port.read_bytes() == host.read_bytes()
+    a, b = io.StringIO(), io.StringIO()
+    driver.gff_search(gcz, qf, out=a, device=cuda)
+    host_driver.gff_search(gcz, qf, out=b, backend="numpy")
+    assert a.getvalue() == b.getvalue() != ""
+    assert fmsearch.LAUNCHES["fm_search"] > 0 and lfwalk.LAUNCHES["decode"] > 0
