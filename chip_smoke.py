@@ -8,19 +8,24 @@ Phases (any mismatch or exception exits non-zero):
 
 1. environment and build: the card's name and power limit, the three CUDA
    kernels (scan, fm_search, lf_walk) built from gecoz_tpu_torch/csrc, one
-   nvcc each, all started together (time, -Xptxas -v);
+   nvcc each, and the host library (g++, csrc/host), all started together
+   (time, -Xptxas -v); the lf_walk kernels' load time;
 2. every scan entry point against its plain PyTorch version, bit-exact, at
-   the sizes the path uses, then both timed with CUDA events;
+   the sizes the path uses, then both timed with CUDA events, and beside
+   them the one PyTorch call that computes the same function where there
+   is one (torch.cumsum in int32, torch.cummax);
 3. the run-aware suffix sort (sort and scatter strategies, with and
-   without the run-key table) against the host tier's C++ SA-IS;
+   without the run-key table) against the host library's C++ SA-IS;
 4. the query-state build (`index_block`) against the port's plain path on
    the CPU, field by field, and its time at 4 MiB and 64 MiB;
 5. end to end: a seeded FASTA with a 64 MiB chromosome-class block through
-   `python -m gecoz_tpu_torch.cli`, the .gcz/.gcx bytes held against
-   gecoz_tpu's host tier, the file decompressed by gecoz_tpu and checked
-   by md5 per record, then decompressed by the port's CLI on the card and
-   held byte for byte against gecoz_tpu's output; the card's busy share of
-   one 64 MiB block's decompress under torch.profiler;
+   `python -m gecoz_tpu_torch.cli`, the .gcz/.gcx bytes held against the
+   host tier's (`encode_block_host`: SA-IS, BWT and wavelet fill on the
+   host), then decompressed by the port's CLI on the card and held byte
+   for byte against the host FM-index's own decode of every block,
+   formatted by the FASTA writer, and by md5 per record against the input;
+   the first decode launch timed apart; the card's busy share of one
+   64 MiB block's decompress under torch.profiler;
 6. the scan launches the compress run made, the LF-walk launches of the
    decompress run;
 7. two blocks of hg38's chr1 and chr2 lengths in a row through the CLI,
@@ -28,20 +33,25 @@ Phases (any mismatch or exception exits non-zero):
    record;
 8. the query kernels at full width against their plain versions on the
    card, bit-exact, then timed: K2's decode walks (k = 16 rows and
-   per-step plain rows of a 64 MiB block; packed rows at the probe's
-   2048 walks x 32 steps over a 2 Mi block) and locate walks (2^20 rows),
-   K1's search (2^20 16-mers, 20,000 reads of 16-150 bases on both
-   strands);
+   per-step plain rows of a 64 MiB block, the k = 16 walk beside its first
+   design (v1); packed rows at the probe's 2048 walks x 32 steps over a 2 Mi block) and locate
+   walks (2^20 rows), both beside the card's random-read rate (a library
+   gather of random rows); K1's search (2^20 16-mers, 20,000 reads of
+   16-150 bases on both strands); each beside its bytes bound;
 9. GFF3 search of 1,000 reads through the port's CLI, byte for byte
-   against gecoz_tpu's CLI (host backend), at the default memory budget
-   (locate table) and at a budget forced low (LF walks); count, locate and
-   range extract against gecoz_tpu's CLI; the card's busy share of one
-   64 MiB block's search under torch.profiler.
+   against the host FM-index (`FMIndex.find` per read and strand, rows
+   written by the GFF3 row writer), at the default memory budget (locate
+   table) and at a budget forced low (LF walks); count and locate against
+   what a plain byte search of the genome gives, written as the verbs write
+   it (byte for byte), range extract against the genome's bytes; the card's busy share of one 64 MiB block's search under
+   torch.profiler.
 
-The oracles are gecoz_tpu's framework-free host modules; JAX is blocked
-from being imported.  The last line is {"ok": true, "device": {...}}; the
-line before it lists the kernels of the paths with their launches in the
-runs through the CLI.
+The port stands alone: an import hook refuses JAX and gecoz_tpu, and the
+oracles are the port's host copies (tests/test_torch_host_copies.py holds
+them equal to gecoz_tpu's on the CPU) or plain computations on the
+genome.  The last line is {"ok": true, "device": {...}}; the line before
+it lists the kernels of the paths with their launches in the runs through
+the CLI, their times, bounds and library calls.
 """
 
 from __future__ import annotations
@@ -57,11 +67,15 @@ import tempfile
 import time
 
 
-class _NoJax:
-    """Import hook: this run must not import JAX (the card has none)."""
+REFUSED = ("jax", "jaxlib", "gecoz_tpu")
+
+
+class _Refuse:
+    """Import hook: this run imports neither JAX (the card's machine has
+    none) nor the JAX package: the port stands alone."""
 
     def find_spec(self, name, path=None, target=None):
-        if name.split(".")[0] in ("jax", "jaxlib"):
+        if name.split(".")[0] in REFUSED:
             raise ImportError(f"chip_smoke must not import {name}")
         return None
 
@@ -74,6 +88,7 @@ KERNELS = ("cumsum_i32", "cummax_i32", "cummin_rev_i32", "fill_fwd_i32",
            "fill_rev_i32")
 REPLACES = "gecoz_tpu/ops/scan_pallas.py:114"     # _scan_pallas
 LIBS = ("scan", "fmsearch", "lfwalk")
+HBM_BYTES_PER_S = 3.35e12       # H100 SXM data sheet: the bytes bound
 # the query kernels' entry points: (name, source, TPU kernel replaced)
 QUERY_KERNELS = (
     ("fm_search", "gecoz_tpu_torch/csrc/fmsearch.cu",
@@ -105,7 +120,7 @@ def counts() -> dict[str, int]:
 
 
 def print_phases(prefix: str = "") -> None:
-    from gecoz_tpu.utils import metrics
+    from gecoz_tpu_torch.utils import metrics
     for name, st in sorted(metrics.stats().items()):
         if name.startswith(prefix):
             print(f"#   phase {name}: {st.seconds * 1e3:.1f} ms over "
@@ -113,8 +128,14 @@ def print_phases(prefix: str = "") -> None:
                   + (f", {st.mbps:.1f} MB/s" if st.bytes else ""))
 
 
+def bound_ms(nbytes: float) -> float:
+    """The least time the card could take to move `nbytes` (each input
+    byte read once, each output byte written once) at its HBM rate."""
+    return nbytes / HBM_BYTES_PER_S * 1e3
+
+
 def md5_records(path) -> dict[str, str]:
-    from gecoz_tpu.formats.fasta import iter_fasta
+    from gecoz_tpu_torch.formats.fasta import iter_fasta
     return {r.header.split()[0]: hashlib.md5(bytes(r.data)).hexdigest()
             for r in iter_fasta(path)}
 
@@ -169,19 +190,33 @@ def wall(fn):
 
 def phase_build(build):
     import concurrent.futures as cf
+    from gecoz_tpu_torch import native
     from gecoz_tpu_torch.ops import fmsearch, lfwalk, scan
     t0 = time.perf_counter()
-    # one nvcc per source, all started together; _lib() also declares the
-    # C signatures
-    with cf.ThreadPoolExecutor(max_workers=len(LIBS)) as pool:
-        for fut in [pool.submit(mod._lib) for mod in (scan, fmsearch, lfwalk)]:
+    # one nvcc per source and g++ for the host library, all started
+    # together; _lib() also declares the C signatures (and lfwalk's loads
+    # its kernels)
+    with cf.ThreadPoolExecutor(max_workers=len(LIBS) + 1) as pool:
+        futs = [pool.submit(mod._lib) for mod in (scan, fmsearch, lfwalk)]
+        futs.append(pool.submit(native.available))
+        for fut in futs:
             fut.result()
-    print(f"# build: {len(LIBS)} libraries in "
-          f"{time.perf_counter() - t0:.3f} s wall (one nvcc each, together)")
-    for name in LIBS:
-        info = build.BUILDS[name]
-        print(f"# build: {info.path.name} in {info.seconds:.3f} s")
-        print(info.ptxas)
+    print(f"# build: {len(LIBS)} kernel libraries and the host library in "
+          f"{time.perf_counter() - t0:.3f} s wall (one compiler each, "
+          "together)")
+    for name in LIBS + ("gecoz_host",):
+        info = build.BUILDS.get(name)
+        if info is not None:
+            print(f"# build: {info.path.name} in {info.seconds:.3f} s")
+            if name != "gecoz_host":
+                print(info.ptxas)
+    check(native.available(), f"the host library did not load: "
+          f"{native.error()}")
+    print(f"# host library loaded: {build.BUILDS['gecoz_host'].path.name} "
+          "(SA-IS, BWT, rank vectors, LF walks, wavelet fill)")
+    print(f"# lf_walk kernels loaded in {lfwalk.INIT_SECONDS * 1e3:.1f} ms "
+          "(the library's CUDA runtime set up, every kernel's attributes "
+          "read), before any launch")
 
 
 def scan_inputs(rng, n, dev):
@@ -199,9 +234,12 @@ def scan_inputs(rng, n, dev):
 def phase_kernels(scan, dev):
     import numpy as np
     import torch
+    # the one PyTorch call that computes an entry point, where there is one
+    library = {"cumsum_i32": lambda x: torch.cumsum(x, 0, dtype=torch.int32),
+               "cummax_i32": lambda x: torch.cummax(x, 0).values}
     rng = np.random.default_rng(0)
     err = {k: 0 for k in KERNELS}
-    times = {}
+    times, lib_times = {}, {}
     for n in SCAN_SIZES:
         full, fill = scan_inputs(rng, n, dev)
         for name in KERNELS:
@@ -223,13 +261,27 @@ def phase_kernels(scan, dev):
                 t = [cuda_ms(lambda: p(x), reps), cuda_ms(lambda: k(x), reps),
                      cuda_ms(lambda: k(x), reps), cuda_ms(lambda: p(x), reps)]
                 ms, plain = (t[1] + t[2]) / 2, (t[0] + t[3]) / 2
-                times[(name, n if n in TIMED_SIZES else n - 12345)] = (
-                    ms, plain)
+                times[times_key(name, n)] = (ms, plain)
                 print(f"# time {name} n={n}: kernel {ms:.4f} ms, plain "
                       f"{plain:.4f} ms (turns plain/kernel/kernel/plain "
                       f"{t[0]:.4f} {t[1]:.4f} {t[2]:.4f} {t[3]:.4f})")
+                if name in library:
+                    call = library[name]
+                    same = torch.equal(call(x), k(x))
+                    lt = [cuda_ms(lambda: call(x), reps),
+                          cuda_ms(lambda: k(x), reps),
+                          cuda_ms(lambda: call(x), reps)]
+                    lib_times[times_key(name, n)] = (lt[0] + lt[2]) / 2
+                    print(f"# time {name} n={n}: library call "
+                          f"{(lt[0] + lt[2]) / 2:.4f} ms, kernel {lt[1]:.4f} "
+                          f"ms (turns library/kernel/library {lt[0]:.4f} "
+                          f"{lt[1]:.4f} {lt[2]:.4f}); same result: {same}")
         del full, fill
-    return err, times
+    return err, times, lib_times
+
+
+def times_key(name, n):
+    return (name, n if n in TIMED_SIZES else n - 12345)
 
 
 def host_bounds(s):
@@ -259,8 +311,8 @@ def host_bounds(s):
 def phase_suffix_sort(dev):
     import numpy as np
     import torch
-    from gecoz_tpu import native
-    from gecoz_tpu.ops.sa import bwt_from_sa
+    from gecoz_tpu_torch import native
+    from gecoz_tpu_torch.ops.sa import bwt_from_sa
     from gecoz_tpu_torch.ops.sa_device import (_suffix_array_runs,
                                                suffix_array_device)
     from bench import synth_dna
@@ -433,11 +485,72 @@ def make_genome(seed: int = 5):
     return recs
 
 
+def host_index_fasta(fa, gcz):
+    """The host tier's compress of a FASTA (the block plan, then
+    `encode_block_host` per block: SA-IS, BWT and wavelet fill on the
+    host), written as the CLI writes it."""
+    import numpy as np
+    from gecoz_tpu_torch.formats.fasta import iter_fasta, read_sequence
+    from gecoz_tpu_torch.formats.gcz import encode_block_host
+    from gecoz_tpu_torch.tools.blocks import plan_blocks
+    with open(gcz, "wb") as ref, open(gcz[:-3] + "gcx", "wb") as ssa:
+        for block in plan_blocks(list(iter_fasta(fa, lazy=True))):
+            data = np.concatenate([x for seq in block.sequences for x in (
+                read_sequence(fa, seq), np.zeros(1, np.uint8))])
+            a, b = encode_block_host(data, block.headers, backend="native")
+            ref.write(a)
+            ssa.write(b)
+
+
+def host_fasta(gcz) -> bytes:
+    """What decompressing `gcz` must write: every block decoded by the host
+    FM-index (the host library's LF walks), each record formatted by the
+    FASTA writer, blocks in file order."""
+    from gecoz_tpu_torch.formats.fasta import format_fasta_record
+    from gecoz_tpu_torch.formats.gcz import GecozReader
+    reader = GecozReader(gcz)
+    out = []
+    for bh in reader.headers:
+        fm = reader.read(bh)
+        text = fm.decode_text()
+        for i, h in enumerate(bh.headers):
+            b, t = fm.seq_bounds(i)
+            out.append(format_fasta_record(h, text[b:t]))
+    return b"".join(out)
+
+
+@contextlib.contextmanager
+def first_launch_timed(mod, name: str, store: dict):
+    """Time the first call of `mod.name` in the block: CUDA events around
+    the call (the device's time from its enqueue to its end) and the host
+    clock (the call, its set-up included)."""
+    import torch
+    orig = getattr(mod, name)
+
+    def timed(*args, **kw):
+        if name in store:
+            return orig(*args, **kw)
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        e0.record()
+        out = orig(*args, **kw)
+        e1.record()
+        e1.synchronize()
+        store[name] = (e0.elapsed_time(e1), (time.perf_counter() - t0) * 1e3)
+        return out
+    setattr(mod, name, timed)
+    try:
+        yield
+    finally:
+        setattr(mod, name, orig)
+
+
 def phase_end_to_end(dev, workdir):
     import torch
-    from gecoz_tpu.tools import driver as host_driver
-    from gecoz_tpu.utils import metrics
     from gecoz_tpu_torch import cli
+    from gecoz_tpu_torch.ops import lfwalk
+    from gecoz_tpu_torch.utils import metrics
 
     fa = os.path.join(workdir, "genome.fa")
     recs = make_genome()
@@ -465,8 +578,9 @@ def phase_end_to_end(dev, workdir):
 
     host_gcz = os.path.join(workdir, "host.gcz")
     t0 = time.perf_counter()
-    host_driver.index_fasta(fa, host_gcz, backend="native")
-    print(f"# host tier (native) compress: {time.perf_counter() - t0:.2f} s")
+    host_index_fasta(fa, host_gcz)
+    print(f"# host tier (encode_block_host, native) compress: "
+          f"{time.perf_counter() - t0:.2f} s")
     for ext in ("gcz", "gcx"):
         a = open(port_gcz[:-3] + ext, "rb").read()
         b = open(host_gcz[:-3] + ext, "rb").read()
@@ -475,13 +589,10 @@ def phase_end_to_end(dev, workdir):
         print(f"# .{ext}: {len(a)} bytes, byte-identical to the host tier "
               f"(md5 {hashlib.md5(a).hexdigest()})")
 
-    back = os.path.join(workdir, "back.fa")
     t0 = time.perf_counter()
-    host_driver.decompress(port_gcz, back, backend="numpy", threads=4)
-    got_md5 = md5_records(back)
-    check(got_md5 == want_md5, "decompressed records differ from the input")
-    print(f"# decompress (gecoz_tpu, numpy): {time.perf_counter() - t0:.2f} "
-          f"s; md5 equal for all {len(want_md5)} records")
+    want_fa = host_fasta(port_gcz)
+    print(f"# host decode (FMIndex.decode_text per block, FASTA writer): "
+          f"{time.perf_counter() - t0:.2f} s")
     for name in PATH_KERNELS:
         check(launches[name] > 0, f"{name} was not launched by the path")
     print(f"# launches during the compress run: {json.dumps(launches)}")
@@ -490,28 +601,38 @@ def phase_end_to_end(dev, workdir):
     back_port = os.path.join(workdir, "back_port.fa")
     metrics.reset()
     torch.cuda.reset_peak_memory_stats(dev)
+    first = {}
     reset_counts()                            # the decompress path starts
     t0 = time.perf_counter()
-    rc = cli.main(["-i", port_gcz, "-o", back_port, "-t", "4",
-                   "--device", str(dev)])
+    with first_launch_timed(lfwalk, "decode_walks", first):
+        rc = cli.main(["-i", port_gcz, "-o", back_port, "-t", "4",
+                       "--device", str(dev)])
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
     dlaunches = counts()                      # ... and ends here
     check(rc == 0, f"port CLI decompress exit code {rc}")
     a = open(back_port, "rb").read()
-    check(a == open(back, "rb").read(), "the port's decompress differs "
-          "from gecoz_tpu's")
+    check(a == want_fa, "the port's decompress differs from the host "
+          "FM-index's decode")
+    check(md5_records(back_port) == want_md5, "decompressed records differ "
+          "from the input")
     check(dlaunches["lf_walk.decode"] > 0, "lf_walk.decode was not "
           "launched by the decompress path")
     print(f"# port CLI decompress: {secs:.2f} s -> {total / 1e6 / secs:.2f} "
-          f"MB/s end to end, {len(a)} bytes byte-identical to gecoz_tpu's "
-          f"(md5 {hashlib.md5(a).hexdigest()}); peak device memory "
+          f"MB/s end to end, {len(a)} bytes byte-identical to the host "
+          f"decode (md5 {hashlib.md5(a).hexdigest()}), md5 equal to the "
+          f"input for all {len(want_md5)} records; peak device memory "
           f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB")
     print_phases("decode.")
+    dev_ms, host_ms = first["decode_walks"]
+    print(f"# first K2 decode call of the run: {dev_ms:.3f} ms on the card "
+          f"(CUDA events), {host_ms:.3f} ms on the host clock, inside "
+          f"decode.walk {metrics.stats()['decode.walk'].seconds * 1e3:.1f} ms "
+          f"over {metrics.stats()['decode.walk'].calls} blocks")
     print(f"# launches during the decompress run: {json.dumps(dlaunches)}")
-    del a
+    del a, want_fa
 
-    from gecoz_tpu.formats.gcz import GecozReader
+    from gecoz_tpu_torch.formats.gcz import GecozReader
     from gecoz_tpu_torch.tools import driver
     reader = GecozReader(port_gcz)
     big = max(reader.headers, key=lambda h: h.len)
@@ -533,8 +654,8 @@ def phase_two_large_blocks(dev, workdir):
     served from what the first left in torch's allocator cache."""
     import numpy as np
     import torch
-    from gecoz_tpu.utils import metrics
     from gecoz_tpu_torch import cli
+    from gecoz_tpu_torch.utils import metrics
 
     rng = np.random.default_rng(17)
     recs = [("chr1", chrom(rng, 248_956_422, 8)),
@@ -581,15 +702,35 @@ def phase_two_large_blocks(dev, workdir):
     print_phases("decode.")
 
 
+def design_sweep(key, variants, want, reps, nbytes):
+    """Designs of one kernel on the same inputs: each held bit-exact
+    against `want`, then timed in turns (forward, then backward through the
+    list; the mean of the two), each beside the bytes bound."""
+    import torch
+    for label, fn in variants.items():
+        check(torch.equal(fn(), want), f"{key} ({label}) differs from plain")
+    names = list(variants)
+    t = {k: [] for k in names}
+    for order in (names, names[::-1]):
+        for k in order:
+            t[k].append(cuda_ms(variants[k], reps))
+    b = bound_ms(nbytes)
+    for k in names:
+        ms = sum(t[k]) / 2
+        print(f"# sweep {key}: {k}: {ms:.4f} ms ({t[k][0]:.4f} {t[k][1]:.4f})"
+              f", {100 * b / ms:.0f}% of the {b:.4f} ms bytes bound; "
+              "bit-exact")
+
+
 def phase_query_kernels(dev):
     """Phase 8: K1 and K2 at full width against their plain versions."""
     import numpy as np
     import torch
-    from gecoz_tpu.tools.batch_search import pack_patterns
     from gecoz_tpu_torch.ops import fmq, fmsearch, lfwalk
     from gecoz_tpu_torch.ops.pipeline import index_block
+    from gecoz_tpu_torch.tools.batch_search import pack_patterns
     from bench import synth_dna
-    err, times = {}, {}
+    err, times, bounds = {}, {}, {}
     rng = np.random.default_rng(23)
 
     n = 64 * MiB
@@ -605,18 +746,35 @@ def phase_query_kernels(dev):
     seeds = fmq._row_with_sa(blk, (torch.arange(W, dtype=torch.int32,
                                                 device=dev) + 1) * rate)
     cmap = fmq.code_map(blk)
-    timed_pair("lf_walk.decode",
-               lambda: lfwalk.decode_walks(blk.lfk_tab, seeds, rate, "lfk16",
-                                           code_map=cmap),
-               lambda: lfwalk.decode_walks_ref(blk.lfk_tab, seeds, rate,
-                                               "lfk16", code_map=cmap),
-               10, err, times, "lf_walk.decode lfk16 64 MiB")
+    key = "lf_walk.decode lfk16 64 MiB"
+    (want,) = timed_pair(
+        "lf_walk.decode",
+        lambda: lfwalk.decode_walks(blk.lfk_tab, seeds, rate, "lfk16",
+                                    code_map=cmap),
+        lambda: lfwalk.decode_walks_ref(blk.lfk_tab, seeds, rate, "lfk16",
+                                        code_map=cmap),
+        10, err, times, key)
+    # seeds in, 12-byte rows read (rate / 16 a walk), the text out
+    bounds[key] = 4 * W + 12 * W * (rate // 16) + W * rate
+
+    def dec(v1):
+        return lambda: lfwalk._decode_launch(blk.lfk_tab, seeds, rate,
+                                             "lfk16", None, cmap, v1)
+    design_sweep(key, {"v1 design (a walk a thread, three 4-byte loads a "
+                       "row)": dec(True),
+                       "staged tiles (a warp's output written as whole "
+                       "lines, a row in two loads)": dec(False)},
+                 want, 10, bounds[key])
+    print(f"# lfk16 table {blk.lfk_tab.numel() * 4 / n:.0f} B/char")
+    del want
     timed_pair("lf_walk.decode",
                lambda: lfwalk.decode_walks(blk.lf_tab, seeds, rate, "plain",
                                            bwt=blk.bwt),
                lambda: lfwalk.decode_walks_ref(blk.lf_tab, seeds, rate,
                                                "plain", bwt=blk.bwt),
                5, err, times, "lf_walk.decode plain 64 MiB")
+    # seeds in; a 4-byte row and a bwt byte a step; the text out
+    bounds["lf_walk.decode plain 64 MiB"] = 4 * W + 6 * W * rate
     text, secs = wall(lambda: fmq.decode_text(blk))
     check(np.array_equal(text.cpu().numpy(), s), "decode_text 64 MiB != "
           "the block")
@@ -628,14 +786,38 @@ def phase_query_kernels(dev):
         np.int32)).to(dev)
     args = (blk.lf_tab, rows, blk.mark_words, blk.mark_pre, blk.ssa_perm,
             blk.sf, blk.lf_packed)
+    key = "lf_walk.locate 2^20 rows 64 MiB"
     (vals,) = timed_pair("lf_walk.locate", lambda: lfwalk.locate_walks(*args),
                          lambda: lfwalk.locate_walks_ref(*args), 10, err,
-                         times, "lf_walk.locate 2^20 rows 64 MiB")
+                         times, key)
     # BWT[row] = T[SA[row] - 1]: the located values agree with the text
     v = vals.cpu().numpy().astype(np.int64)
     check(bool((v >= 0).all()) and np.array_equal(
         blk.bwt[rows.long()].cpu().numpy(), s[(v - 1) % n]),
         "located values disagree with the text")
+    # a walk from a row with SA value v reads v % rate + 1 rows, then the
+    # mark word, its prefix and ssa_perm; the row in, the value out
+    bounds[key] = 4 * int((v % rate + 1).sum()) + 20 * len(v)
+    print(f"# locate walks: {(v % rate + 1).mean():.2f} row reads a row on "
+          f"average, {int((v % rate + 1).max())} at most")
+    reads = int((v % rate + 1).sum()) + 3 * len(v)
+
+    # the card's random-read rate: one library gather of random rows
+    def gather(t, count):
+        idx = torch.randint(0, t.shape[0], (count,), device=dev,
+                            generator=torch.Generator(dev).manual_seed(5))
+        ms = cuda_ms(lambda: torch.index_select(t, 0, idx), 10)
+        print(f"# random reads: torch.index_select of {count} random "
+              f"{t[0].numel() * 4}-byte rows of a {t.numel() * 4 >> 20} MiB "
+              f"table: {ms:.4f} ms = {count / ms / 1e6:.2f} G rows/s")
+        return count / ms
+    per_ms4 = gather(blk.lf_tab, 1 << 24)
+    per_ms12 = gather(blk.lfk_tab, 1 << 22)
+    dec_ms = times["lf_walk.decode lfk16 64 MiB"][0]
+    print(f"# at those rates: decode's {2 * W} row reads take "
+          f"{2 * W / per_ms12:.4f} ms (the kernel {dec_ms:.4f} ms), locate's "
+          f"{reads} reads {reads / per_ms4:.4f} ms (the kernel "
+          f"{times[key][0]:.4f} ms)")
 
     k_blk = fmq.with_kmer_table(blk)
     print(f"# k-mer table: k {k_blk.kmer_k}, {k_blk.kmer_bits} bits, "
@@ -649,6 +831,10 @@ def phase_query_kernels(dev):
                         lambda: fmsearch.backward_search_ref(k_blk, pats,
                                                              lens),
                         10, err, times, "fm_search 2^20 16-mers")
+    # a pattern in, its 8-byte k-mer seed, then L - k steps of two occ
+    # lookups (an 8-byte word and prefix each), sp and ep out
+    bounds["fm_search 2^20 16-mers"] = B * (L + 4 + 8 + 8
+                                            + 16 * (L - k_blk.kmer_k))
     # every 16-mer drawn from the text occurs (those across a separator
     # excepted: backward search steps through '\0' uncorrected)
     whole = (pats != 0).all(1)
@@ -670,6 +856,11 @@ def phase_query_kernels(dev):
                         lambda: fmsearch.backward_search_ref(k_blk, pats,
                                                              lens),
                         5, err, times, "fm_search 20,000 reads x 2 strands")
+    # every step counted: a reverse strand absent from the text stops
+    # early, so this bound is an upper one
+    steps = np.maximum(ln.astype(np.int64) - k_blk.kmer_k, 0)
+    bounds["fm_search 20,000 reads x 2 strands"] = int(
+        (ln.astype(np.int64) + 4 + 8 + 8 + 16 * steps).sum())
     whole = (pats[0::2] != 0).all(1)
     check(bool((ep[0::2] >= sp[0::2])[whole].all()), "a read drawn from the "
           "block was not found")
@@ -688,9 +879,16 @@ def phase_query_kernels(dev):
                lambda: lfwalk.decode_walks_ref(b2.lf_tab, seeds2, 32,
                                                "packed"),
                50, err, times, "lf_walk.decode packed probe 2048x32")
+    bounds["lf_walk.decode packed probe 2048x32"] = 2048 * (4 + 5 * 32)
     del b2
     torch.cuda.empty_cache()
-    return err, times
+    for key, nbytes in bounds.items():
+        ms, plain = times[key]
+        most = " at most" if key.endswith("strands") else ""
+        print(f"# bound {key}:{most} {bound_ms(nbytes):.4f} ms for {nbytes} "
+              f"bytes (kernel {ms:.4f} ms = {100 * bound_ms(nbytes) / ms:.1f}"
+              f"% of it; plain {plain:.4f} ms)")
+    return err, times, bounds
 
 
 def make_queries(rng, path, count=1000):
@@ -729,23 +927,81 @@ def cli_out(main, argv) -> str:
     return buf.getvalue()
 
 
+def host_gff(gcz, qf) -> str:
+    """GFF3 rows of a query FASTA by the host FM-index: `FMIndex.find` of
+    every read and its reverse complement in every block, rows in the
+    reference's order (read, strand, block, sequence), written by the GFF3
+    row writer."""
+    from gecoz_tpu_torch.formats.fasta import iter_fasta
+    from gecoz_tpu_torch.formats.gcz import GecozReader
+    from gecoz_tpu_torch.tools.driver import _COMPLEMENT, _gff_row
+    queries = []
+    for q in iter_fasta(qf):
+        fwd = bytes(q.data).replace(b"U", b"T")
+        queries.append((q.header, fwd, fwd[::-1].translate(_COMPLEMENT)))
+    reader = GecozReader(gcz)
+    results = []
+    for bh in reader.headers:
+        fm = reader.read(bh)
+        per = {}
+        for qi, (_, fwd, rev) in enumerate(queries):
+            per[2 * qi], per[2 * qi + 1] = fm.find(fwd), fm.find(rev)
+        results.append((bh.headers, per))
+        del fm
+    out = io.StringIO()
+    for qi, (header, fwd, _) in enumerate(queries):
+        for si, reverse in ((2 * qi, False), (2 * qi + 1, True)):
+            for seq_headers, per in results:
+                for i, hits in sorted(per[si].items()):
+                    for p in hits:
+                        _gff_row(out, seq_headers[i], int(p), len(fwd),
+                                 reverse, header)
+    return out.getvalue()
+
+
+def occurrences(seq: bytes, pat: bytes) -> list[int]:
+    """Every start of `pat` in `seq`, overlapping ones included."""
+    out, i = [], seq.find(pat)
+    while i >= 0:
+        out.append(i)
+        i = seq.find(pat, i + 1)
+    return out
+
+
+def match_text(gcz, hits, header=None, positions=True) -> str:
+    """What the count (`-c`) and locate (`-s [header] PATTERN`) verbs must
+    write for a pattern whose starts are `hits` ({sequence header: starts,
+    ascending}, from a plain search of the genome): blocks in file order,
+    sequences in block order, `>header found : N`, then with `positions`
+    one start a line."""
+    from gecoz_tpu_torch.formats.gcz import GecozReader
+    out = []
+    for bh in GecozReader(gcz).headers:
+        for h in bh.headers:
+            if hits.get(h) and header in (None, h):
+                out.append(f">{h} found : {len(hits[h])}\n")
+                if positions:
+                    out += [f"{p}\n" for p in hits[h]]
+    return "".join(out)
+
+
 def phase_search(dev, workdir, port_gcz):
-    """Phase 9: GFF3 search through the port's CLI against gecoz_tpu's."""
+    """Phase 9: GFF3 search through the port's CLI against the host
+    FM-index; count, locate and extract against the genome itself."""
     import numpy as np
     import torch
-    from gecoz_tpu.cli import main as ref_main
-    from gecoz_tpu.formats.gcz import GecozReader
-    from gecoz_tpu.utils import metrics
     from gecoz_tpu_torch import cli
+    from gecoz_tpu_torch.formats.gcz import GecozReader
+    from gecoz_tpu_torch.utils import metrics
 
     qf = os.path.join(workdir, "queries.fa")
     pat = make_queries(np.random.default_rng(29), qf)
     nblocks = len(GecozReader(port_gcz).headers)
     t0 = time.perf_counter()
-    want = cli_out(ref_main, ["-i", port_gcz, "-s", qf, "--backend",
-                              "numpy"])
-    print(f"# gecoz_tpu CLI -s queries.fa (numpy): "
-          f"{time.perf_counter() - t0:.2f} s, {want.count(chr(10))} rows")
+    want = host_gff(port_gcz, qf)
+    print(f"# host FM-index GFF3 rows (FMIndex.find, 2000 patterns x "
+          f"{nblocks} blocks): {time.perf_counter() - t0:.2f} s, "
+          f"{want.count(chr(10))} rows")
     launches = {}
     for label, budget in (("default budget", None), ("budget 1 B", "1")):
         if budget:
@@ -759,12 +1015,13 @@ def phase_search(dev, workdir, port_gcz):
         secs = time.perf_counter() - t0
         launches[label] = counts()            # ... and ends here
         os.environ.pop("GECOZ_HBM_BYTES", None)
-        check(got == want, f"GFF3 rows ({label}) differ from gecoz_tpu's")
+        check(got == want, f"GFF3 rows ({label}) differ from the host "
+              "FM-index's")
         st = metrics.stats()
         q = 2000 * nblocks
         card = st["search.batch"].seconds + st["search.locate"].seconds
         print(f"# port CLI -s queries.fa ({label}): {secs:.2f} s, "
-              f"{len(got)} bytes byte-identical to gecoz_tpu's; "
+              f"{len(got)} bytes byte-identical to the host FM-index's; "
               f"{q} pattern-block searches, {q / card:.0f} queries/s over "
               f"search.batch + search.locate")
         print_phases("search.")
@@ -775,9 +1032,9 @@ def phase_search(dev, workdir, port_gcz):
     check(launches["budget 1 B"]["lf_walk.locate"] > 0, "lf_walk.locate was "
           "not launched by the search path past the budget")
 
-    from gecoz_tpu.formats.fasta import iter_fasta
-    from gecoz_tpu.tools.driver import _COMPLEMENT
+    from gecoz_tpu_torch.formats.fasta import iter_fasta
     from gecoz_tpu_torch.tools.batch_search import find_batched
+    from gecoz_tpu_torch.tools.driver import _COMPLEMENT
     pats = []
     for q in iter_fasta(qf):
         seq = bytes(q.data)
@@ -792,17 +1049,24 @@ def phase_search(dev, workdir, port_gcz):
                        "tile_scan"))
     del fm
 
-    for argv in (["-c", pat], ["-s", "chr2", pat], ["-s", pat]):
-        a = cli_out(cli.main, ["-i", port_gcz] + argv)
-        check(a == cli_out(ref_main, ["-i", port_gcz] + argv),
-              f"{argv} differs from gecoz_tpu's")
-    a, b = (os.path.join(workdir, x) for x in ("a.seq", "b.seq"))
+    # count, locate and extract: the host verbs against the genome's bytes
+    genome = {name: seq.tobytes() for name, seq in make_genome()}
+    p = pat.encode()
+    hits = {h: occurrences(g, p) for h, g in genome.items()}
+    for argv, want_text in (
+            (["-c", pat], match_text(port_gcz, hits, positions=False)),
+            (["-s", pat], match_text(port_gcz, hits)),
+            (["-s", "chr2", pat], match_text(port_gcz, hits, "chr2"))):
+        got = cli_out(cli.main, ["-i", port_gcz] + argv)
+        check(got == want_text, f"{argv}: the output differs from the "
+              "genome's occurrences written as the verbs write them")
+    a = os.path.join(workdir, "a.seq")
     cli_out(cli.main, ["-i", port_gcz, "-o", a, "chr2", "1000", "50000"])
-    cli_out(ref_main, ["-i", port_gcz, "-o", b, "chr2", "1000", "50000"])
-    check(open(a, "rb").read() == open(b, "rb").read(), "range extract "
-          "differs from gecoz_tpu's")
-    print("# -c, -s chr2 PATTERN, -s PATTERN and range extract: identical "
-          "to gecoz_tpu's CLI")
+    check(open(a, "rb").read() == genome["chr2"][1000:50000],
+          "range extract differs from the genome")
+    print(f"# -c, -s PATTERN, -s chr2 PATTERN ({sum(map(len, hits.values()))}"
+          " occurrences of a 12-mer) and range extract: byte for byte equal "
+          "to a plain search and slice of the genome")
     return launches
 
 
@@ -811,9 +1075,8 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
-    sys.meta_path.insert(0, _NoJax())
+    sys.meta_path.insert(0, _Refuse())
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-    import gecoz_tpu_torch  # noqa: F401 - sets up the gecoz_tpu import
     from gecoz_tpu_torch.kernels import _build
     from gecoz_tpu_torch.ops import scan
 
@@ -826,25 +1089,33 @@ def main() -> int:
                          text=True, check=True).stdout.strip()
     print(smi)
     t_all = time.perf_counter()
+    torch.zeros(1, device=dev)
+    torch.cuda.synchronize()
+    print(f"# torch's CUDA context: {time.perf_counter() - t_all:.3f} s")
     phase_build(_build)
-    err, times = phase_kernels(scan, dev)
+    err, times, lib_times = phase_kernels(scan, dev)
     phase_suffix_sort(dev)
     phase_query_state(dev)
     with tempfile.TemporaryDirectory() as work:
         launches, dlaunches = phase_end_to_end(dev, work)
         with tempfile.TemporaryDirectory() as large:
             phase_two_large_blocks(dev, large)
-        qerr, qtimes = phase_query_kernels(dev)
+        qerr, qtimes, qbounds = phase_query_kernels(dev)
         slaunches = phase_search(dev, work, os.path.join(work, "port.gcz"))
-    check("jax" not in sys.modules, "jax was imported")
+    loaded = [m for m in sys.modules if m.split(".")[0] in REFUSED]
+    check(not loaded, f"{loaded} were imported")
     print(f"# all phases passed in {time.perf_counter() - t_all:.1f} s")
 
     def entry(name):
+        # 4 bytes a value in and out at the timed 64 Mi + 12,345 values
         ms, plain = times[(name, 64 * MiB)]
         return {"name": name, "route": "cuda",
                 "source": "gecoz_tpu_torch/csrc/scan.cu",
                 "replaces": REPLACES, "launches": launches[name],
-                "max_abs_err": err[name], "ms": ms, "plain_ms": plain}
+                "max_abs_err": err[name], "ms": ms, "plain_ms": plain,
+                "bound_ms": bound_ms(8 * (64 * MiB + 12345)),
+                "bound_by": "bytes",
+                "library_ms": lib_times.get((name, 64 * MiB))}
     # the query kernels: launches from the run of the path that takes
     # them, times at the path's shapes on the 64 MiB block (phase 8)
     runs = {"fm_search": (slaunches["default budget"],
@@ -858,9 +1129,12 @@ def main() -> int:
         ms, plain = qtimes[key]
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": run[name],
-                "max_abs_err": qerr[name], "ms": ms, "plain_ms": plain}
+                "max_abs_err": qerr[name], "ms": ms, "plain_ms": plain,
+                "bound_ms": bound_ms(qbounds[key]), "bound_by": "bytes",
+                "library_ms": None}
     # cummax_i32 and cummin_rev_i32 share the kernel template but have no
-    # caller on the paths: checked and timed above, listed apart
+    # caller on the paths (no launch to show): checked and timed above,
+    # listed apart
     off_path = [entry(k) for k in KERNELS if k not in PATH_KERNELS]
     print(f"# ported, not on the paths: {json.dumps(off_path)}")
     print(json.dumps({"kernels": [entry(k) for k in PATH_KERNELS]

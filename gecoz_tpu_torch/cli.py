@@ -7,19 +7,20 @@
                                   [--resume] [--sampling N] [--check [--deep]]
                                   [--device cuda:0|cpu]
 
-Flags are parsed as the reference CLI parses them (gecoz_tpu/cli.py,
-Gecotools.java:209-243), and every verb of the reference is served:
+Flags are parsed as the reference CLI parses them (`parse_args`, a copy of
+gecoz_tpu/cli.py's, Gecotools.java:209-243), and every verb of the
+reference is served:
 
 * on the card (`--device` names another device, e.g. `cpu` for the plain
   PyTorch versions; without a card and without `--device` these exit
   non-zero): compress/index (`-i x.fa -o x.gcz`), decompress (`-i x.gcz
   -o x.fa`, `-t N` reflow threads) and GFF3 batch search (`-i x.gcz -s
   queries.fa`);
-* on the host, through the reference's own route, which runs there with
-  every backend (`gecoz_tpu.tools.driver`: `FMIndex.find`/`extract` on the
-  wavelet tree, no JAX): count (`-c [header] PATTERN`), locate (`-s header
-  PATTERN` or `-s PATTERN`), range extract (`-o chr.seq chrN [from [to]]`)
-  and `--check [--deep]`.
+* on the host, as the reference runs them with every backend (the port's
+  copies in `tools/driver.py`: `FMIndex.find`/`extract` on the wavelet
+  tree): count (`-c [header] PATTERN`), locate (`-s header PATTERN` or
+  `-s PATTERN`), range extract (`-o chr.seq chrN [from [to]]`) and
+  `--check [--deep]`.
 
 `--backend` is the reference's tier switch and is refused here.
 """
@@ -30,9 +31,23 @@ import logging
 import sys
 from pathlib import Path
 
-from gecoz_tpu.cli import parse_args
-
 HELP = __doc__
+
+
+def parse_args(argv: list[str]) -> dict[str, list[str]]:
+    """Multimap parser (Gecotools.parameters:209-243)."""
+    known = {"-h", "--help", "-i", "--input", "-idx", "--index", "-s",
+             "--search", "-c", "--count", "-a", "--align", "-t", "--threads",
+             "-v", "--verbose", "-o", "--output", "--backend", "--resume",
+             "--sampling", "--check", "--deep"}
+    params: dict[str, list[str]] = {}
+    values = None
+    for arg in argv:
+        if arg in known:
+            values = params.setdefault(arg, [])
+        elif values is not None:
+            values.append(arg)
+    return params
 
 
 def _device(name: str | None):
@@ -90,12 +105,11 @@ def main(argv: list[str] | None = None) -> int:
     svals = params.get("--sampling") or []
     sampling = int(svals[0]) if svals else 32
 
-    from gecoz_tpu.formats.gcz import check_format
-    from gecoz_tpu.tools import driver as host_driver
+    from gecoz_tpu_torch.formats.gcz import check_format
     from gecoz_tpu_torch.tools import driver
 
     if "--check" in params:
-        ok = host_driver.check(ipath, deep="--deep" in params)
+        ok = driver.check(ipath, deep="--deep" in params)
         return 0 if ok else 1
     if "-o" in params or "--output" in params:
         out = params.get("-o") or params.get("--output")
@@ -106,7 +120,7 @@ def main(argv: list[str] | None = None) -> int:
         if check_format(ipath) and len(out) > 1:
             start = int(out[2]) if len(out) > 2 else 0
             end = int(out[3]) if len(out) > 3 else None
-            host_driver.extract_range(ipath, out[1], start, end, opath)
+            driver.extract_range(ipath, out[1], start, end, opath)
             return 0
         dev = _device(device)
         if dev is None:
@@ -131,7 +145,7 @@ def main(argv: list[str] | None = None) -> int:
         else:
             header = search[0] if len(search) > 1 else None
             pattern = search[1] if len(search) > 1 else search[0]
-            host_driver.match(ipath, header, pattern, show_positions=True)
+            driver.match(ipath, header, pattern, show_positions=True)
     elif "-c" in params or "--count" in params:
         count = params.get("-c") or params.get("--count")
         if not count:
@@ -139,7 +153,7 @@ def main(argv: list[str] | None = None) -> int:
             return 1
         header = count[0] if len(count) > 1 else None
         pattern = count[1] if len(count) > 1 else count[0]
-        host_driver.match(ipath, header, pattern, show_positions=False)
+        driver.match(ipath, header, pattern, show_positions=False)
     return 0
 
 

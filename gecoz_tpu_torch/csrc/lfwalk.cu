@@ -6,15 +6,16 @@
 // it: the decode walks of decode_text_jit (gecoz_tpu/ops/fmq.py:842-892) and
 // the fused-table locate walk of locate_batch (fmq.py:774-792).  Mosaic
 // could not lower the 1-D walk gather, so the JAX package kept XLA gathers;
-// here each walk is one thread chasing rows in device memory.
+// here the walks chase rows in device memory.
 //
 // Entry points:
 //   gecoz_lf_decode  W walks of `rate` steps from `seeds`; step j of walk w
 //                    writes out[w * rate + rate - 1 - j].  Modes:
 //                      0 lfk16: rows (LF^16, 8 plane codes, 8 plane codes),
-//                               12 bytes, 4-byte aligned;
+//                               12 bytes;
 //                      1 lfk8:  rows (LF^8, 8 plane codes), 8 bytes;
 //                      2 lfk4:  rows (LF^4, 4 symbol bytes), 8 bytes;
+//                    (lfk tables start 8-byte aligned);
 //                      3 packed lf_tab rows (lf << 8) | sym (| mark << 31);
 //                      4 plain  lf_tab rows lf (| mark << 31), the symbol
 //                               read from bwt.
@@ -24,19 +25,42 @@
 //                    is reached, at most rate + 1 reads, then the sampled
 //                    value (rank in the mark plane, ssa_perm) plus the steps
 //                    taken; -1 where no mark was reached.
+//   gecoz_lf_init    loads the kernels (the library's CUDA runtime and its
+//                    module) so that the first launch pays no set-up.
 //
 // What bounds it: dependent random reads from device memory.  Every step
 // needs the row the previous step read, and at chromosome scale the tables
-// (4-12 bytes a row, n rows) are far past the 50 MB L2, so a walk's time is
-// its read count times the latency of a read.  The design keeps one walk
-// per thread with 256 threads a block and as many blocks as walks, so that
-// tens of thousands of independent reads are in flight across the SMs; the
-// fused k-step rows cut the reads of a decode walk by k (16 text bytes per
-// 12-byte read at the default sampling of 32); a round's k output bytes
-// are assembled in registers and written with one k-byte store.
-// Interleaving several walks per thread and L2 access-policy windows are
-// later work.
+// (4-12 bytes a row, n rows) are far past the 50 MB L2, so every row read
+// opens its own 32-byte sector of HBM.  Measured on the H100 (PERF.md),
+// the walks run at the card's random-read rate, the rate of a library
+// gather of as many random rows: in useful bytes, a fifth or less of the
+// HBM's 3.35 TB/s.
 //
+// The design:
+// * decode, lfk modes (the default path): a persistent grid (blocks = SMs
+//   x the occupancy the kernel's registers and shared memory allow) walks
+//   over warp tiles of 32 consecutive walks, one walk a lane.  A 12-byte
+//   lfk16 row is read as two loads, an aligned 8-byte pair and a 4-byte
+//   word (which pair depends on the row's parity), not three words, so the
+//   table must be 8-byte aligned.  The output is staged per warp in shared
+//   memory, a chunk of min(rate, 32) bytes of each of 32 walks at a time,
+//   and written with 16-byte stores by consecutive lanes: at rate 32 a warp
+//   tile is 1 KiB of contiguous output written as whole 128-byte lines
+//   once, where one thread per walk wrote each 32-byte sector in two halves
+//   from two separate rounds.  Chunks need rate <= 32 or rate % 32 == 0
+//   (rates are powers of two).  Measured on the card and not taken
+//   (PERF.md): 2 and 4 walks a thread, no faster, and rows padded to 16
+//   bytes, 5% faster for a third more table memory.
+// * locate keeps one walk a thread (lf_locate, the first design): on the
+//   H100 it already reads rows faster than a library gather of as many
+//   random rows, and both alternatives measured on the card were slower
+//   (PERF.md): a persistent kernel whose lanes each held 1-4 walks as small
+//   state machines and took the warp's next row when one ended, and an L2
+//   access-policy window keeping ssa_perm resident while lf_tab streams.
+// * packed and plain rows keep one thread per walk (their tables are the
+//   per-step lf_tab; they are off the default path).
+// The first design of the lfk decode walks stays as gecoz_lf_decode_v1:
+// chip_smoke.py times it beside the new one; nothing else launches it.
 // Offsets into the tables and the output are 64-bit.
 
 #include <cstdint>
@@ -45,6 +69,8 @@
 namespace {
 
 constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
+constexpr int kChunk = 32;             // staged bytes a walk, at most
 
 enum Mode { kLfk16 = 0, kLfk8 = 1, kLfk4 = 2, kPacked = 3, kPlain = 4 };
 
@@ -60,11 +86,151 @@ __device__ __forceinline__ uint32_t codes4(const uint8_t* map, uint32_t word,
   return out;
 }
 
+// ---------------------------------------------------------------- decode
+
+// One fused row: the LF^k target and up to two words of step symbols.
+struct Row {
+  uint32_t next, a, b;
+};
+
+template <int kMode>
+__device__ __forceinline__ Row load_row(const uint32_t* __restrict__ tab,
+                                        uint32_t idx) {
+  Row r;
+  if (kMode == kLfk16) {
+    // row idx starts at word 3 idx: an odd row's words 1-2 and an even
+    // row's words 0-1 are an 8-byte aligned pair; the third word is apart
+    const uint32_t* p = tab + 3 * static_cast<int64_t>(idx);
+    const uint32_t odd = idx & 1u;
+    const uint2 pair = __ldg(reinterpret_cast<const uint2*>(p + odd));
+    const uint32_t single = __ldg(p + (odd ? 0 : 2));
+    r.next = odd ? single : pair.x;
+    r.a = odd ? pair.x : pair.y;
+    r.b = odd ? pair.y : single;
+  } else {
+    const uint2 v = __ldg(reinterpret_cast<const uint2*>(tab) + idx);
+    r.next = v.x; r.a = v.y; r.b = 0;
+  }
+  return r;
+}
+
+// The k bytes of one row, latest step first, stored at `dst` (k-aligned).
+template <int kMode>
+__device__ __forceinline__ void put_row(const uint8_t* map, const Row& r,
+                                        uint8_t* dst) {
+  if (kMode == kLfk16) {
+    // word b's codes 7..0, then word a's codes 7..0
+    uint4 v;
+    v.x = codes4(map, r.b, 7);
+    v.y = codes4(map, r.b, 3);
+    v.z = codes4(map, r.a, 7);
+    v.w = codes4(map, r.a, 3);
+    *reinterpret_cast<uint4*>(dst) = v;
+  } else if (kMode == kLfk8) {
+    uint2 v;
+    v.x = codes4(map, r.a, 7);
+    v.y = codes4(map, r.a, 3);
+    *reinterpret_cast<uint2*>(dst) = v;
+  } else {
+    // step j's byte at bits 8j; memory order is latest step first
+    *reinterpret_cast<uint32_t*>(dst) = __byte_perm(r.a, 0, 0x0123);
+  }
+}
+
+// Write a staged chunk: rows 0..nrows-1 of `st` (C bytes each) are bytes
+// [col, col + C) of walks wbase.. wbase+nrows-1.  C == rate: the rows are
+// contiguous in `out`; else C == 32 and each row is one whole sector.
+__device__ __forceinline__ void flush(const uint8_t* st, uint8_t* out,
+                                      int64_t wbase, int nrows, int rate,
+                                      int col, int C, int lane) {
+  if (C == rate) {
+    uint8_t* dst = out + wbase * rate;
+    const int nbytes = nrows * C;
+    for (int p = 16 * lane; p < nbytes; p += 16 * 32) {
+      if (p + 16 <= nbytes) {
+        *reinterpret_cast<uint4*>(dst + p) =
+            *reinterpret_cast<const uint4*>(st + p);
+      } else {
+        for (int q = p; q < nbytes; ++q) dst[q] = st[q];
+      }
+    }
+  } else {
+    for (int p = lane; p < 2 * nrows; p += 32) {
+      const int row = p >> 1, half = 16 * (p & 1);
+      *reinterpret_cast<uint4*>(out + (wbase + row) * rate + col + half) =
+          *reinterpret_cast<const uint4*>(st + kChunk * row + half);
+    }
+  }
+}
+
 template <int kMode>
 __global__ void __launch_bounds__(kThreads)
-    lf_decode(const uint32_t* __restrict__ tab, const uint8_t* __restrict__ bwt,
-              const int32_t* __restrict__ seeds, int64_t W, int rate,
-              const uint8_t* __restrict__ map_g, uint8_t* __restrict__ out) {
+    lf_decode_tiles(const uint32_t* __restrict__ tab,
+                    const int32_t* __restrict__ seeds, int64_t W, int rate,
+                    const uint8_t* __restrict__ map_g,
+                    uint8_t* __restrict__ out) {
+  constexpr int K = kMode == kLfk16 ? 16 : kMode == kLfk8 ? 8 : 4;
+  __shared__ __align__(16) uint8_t stage[kWarps][32 * kChunk];
+  __shared__ uint8_t map[16];
+  if (kMode != kLfk4) {
+    if (threadIdx.x < 16) map[threadIdx.x] = map_g[threadIdx.x];
+    __syncthreads();
+  }
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int C = rate < kChunk ? rate : kChunk;
+  const int64_t tiles = (W + 31) / 32;
+  for (int64_t t = static_cast<int64_t>(blockIdx.x) * kWarps + warp;
+       t < tiles; t += static_cast<int64_t>(gridDim.x) * kWarps) {
+    const int64_t w0 = 32 * t;
+    const bool live = w0 + lane < W;
+    const int nrows = static_cast<int>(W - w0 < 32 ? W - w0 : 32);
+    uint32_t idx = live ? static_cast<uint32_t>(seeds[w0 + lane]) : 0u;
+    for (int col = rate - C; col >= 0; col -= C) {
+      // chunk: bytes [col, col + C) of every walk, rounds latest first
+      for (int off = C - K; off >= 0; off -= K) {
+        if (live) {
+          const Row r = load_row<kMode>(tab, idx);
+          put_row<kMode>(map, r, &stage[warp][lane * C + off]);
+          idx = r.next;
+        }
+      }
+      __syncwarp();
+      flush(stage[warp], out, w0, nrows, rate, col, C, lane);
+      __syncwarp();
+    }
+  }
+}
+
+// Per-step rows (packed, plain): one thread per walk.
+template <int kMode>
+__global__ void __launch_bounds__(kThreads)
+    lf_decode_steps(const uint32_t* __restrict__ tab,
+                    const uint8_t* __restrict__ bwt,
+                    const int32_t* __restrict__ seeds, int64_t W, int rate,
+                    uint8_t* __restrict__ out) {
+  const int64_t w = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
+  if (w >= W) return;
+  uint8_t* o = out + w * rate;
+  uint32_t idx = static_cast<uint32_t>(seeds[w]);
+  for (int j = 0; j < rate; ++j) {
+    const uint32_t v = __ldg(tab + idx);
+    if (kMode == kPacked) {
+      o[rate - 1 - j] = static_cast<uint8_t>(v & 255u);
+      idx = (v >> 8) & 0x7FFFFFu;
+    } else {
+      o[rate - 1 - j] = __ldg(bwt + idx);
+      idx = v & 0x7FFFFFFFu;
+    }
+  }
+}
+
+// ------------------------------------------ first designs (v1, locate)
+
+template <int kMode>
+__global__ void __launch_bounds__(kThreads)
+    lf_decode_v1(const uint32_t* __restrict__ tab,
+                 const int32_t* __restrict__ seeds, int64_t W, int rate,
+                 const uint8_t* __restrict__ map_g, uint8_t* __restrict__ out) {
   __shared__ uint8_t map[16];
   if (kMode == kLfk16 || kMode == kLfk8) {
     if (threadIdx.x < 16) map[threadIdx.x] = map_g[threadIdx.x];
@@ -74,56 +240,27 @@ __global__ void __launch_bounds__(kThreads)
   if (w >= W) return;
   uint8_t* o = out + w * rate;
   uint32_t idx = static_cast<uint32_t>(seeds[w]);
-  if (kMode == kLfk16) {
-    // round r covers steps 16r .. 16r+15, bytes rate-16(r+1) .. rate-16r-1,
-    // latest step first: word 2's codes 7..0, then word 1's codes 7..0
-    for (int r = 0; r < rate / 16; ++r) {
-      const uint32_t* row = tab + 3 * static_cast<int64_t>(idx);
-      const uint32_t nxt = __ldg(row), a = __ldg(row + 1), b = __ldg(row + 2);
-      uint4 v;
-      v.x = codes4(map, b, 7);
-      v.y = codes4(map, b, 3);
-      v.z = codes4(map, a, 7);
-      v.w = codes4(map, a, 3);
-      *reinterpret_cast<uint4*>(o + rate - 16 * (r + 1)) = v;
-      idx = nxt;
+  constexpr int K = kMode == kLfk16 ? 16 : kMode == kLfk8 ? 8 : 4;
+  for (int r = 0; r < rate / K; ++r) {
+    Row row;
+    if (kMode == kLfk16) {
+      const uint32_t* p = tab + 3 * static_cast<int64_t>(idx);
+      row.next = __ldg(p); row.a = __ldg(p + 1); row.b = __ldg(p + 2);
+    } else {
+      row = load_row<kMode>(tab, idx);
     }
-  } else if (kMode == kLfk8) {
-    for (int r = 0; r < rate / 8; ++r) {
-      const uint2 row =
-          __ldg(reinterpret_cast<const uint2*>(tab) + static_cast<int64_t>(idx));
-      uint2 v;
-      v.x = codes4(map, row.y, 7);
-      v.y = codes4(map, row.y, 3);
-      *reinterpret_cast<uint2*>(o + rate - 8 * (r + 1)) = v;
-      idx = row.x;
-    }
-  } else if (kMode == kLfk4) {
-    for (int r = 0; r < rate / 4; ++r) {
-      const uint2 row =
-          __ldg(reinterpret_cast<const uint2*>(tab) + static_cast<int64_t>(idx));
-      // step j's byte at bits 8j; memory order is latest step first
-      *reinterpret_cast<uint32_t*>(o + rate - 4 * (r + 1)) =
-          __byte_perm(row.y, 0, 0x0123);
-      idx = row.x;
-    }
-  } else {
-    for (int j = 0; j < rate; ++j) {
-      const uint32_t v = __ldg(tab + idx);
-      if (kMode == kPacked) {
-        o[rate - 1 - j] = static_cast<uint8_t>(v & 255u);
-        idx = (v >> 8) & 0x7FFFFFu;
-      } else {
-        o[rate - 1 - j] = __ldg(bwt + idx);
-        idx = v & 0x7FFFFFFFu;
-      }
-    }
+    put_row<kMode>(map, row, o + rate - K * (r + 1));
+    idx = row.next;
   }
 }
 
+// One walk a thread: 256 threads a block, one block per 256 rows.  A walk
+// ends at the first row with bit 31 set (at most rate + 1 reads); the row's
+// rank among the sampled rows (popcount in the mark plane) picks its value.
 __global__ void __launch_bounds__(kThreads)
-    lf_locate(const uint32_t* __restrict__ tab, const int32_t* __restrict__ rows,
-              int64_t B, const uint32_t* __restrict__ mark_words,
+    lf_locate(const uint32_t* __restrict__ tab,
+              const int32_t* __restrict__ rows, int64_t B,
+              const uint32_t* __restrict__ mark_words,
               const int32_t* __restrict__ mark_pre,
               const int32_t* __restrict__ ssa_perm, int sf, int packed,
               int32_t* __restrict__ out) {
@@ -134,9 +271,8 @@ __global__ void __launch_bounds__(kThreads)
   for (int steps = 0; steps <= rate; ++steps) {
     const uint32_t v = __ldg(tab + idx);
     if (v >> 31) {
-      // sampled here: its rank among the sampled rows picks the value
       const uint32_t wd = idx >> 5;
-      const uint32_t mask = (2u << (idx & 31u)) - 1u;  // bit 31: wraps to ~0
+      const uint32_t mask = (2u << (idx & 31u)) - 1u;
       const int32_t rank =
           __ldg(mark_pre + wd) + __popc(__ldg(mark_words + wd) & mask);
       out[b] = (__ldg(ssa_perm + (rank > 1 ? rank - 1 : 0)) << sf) + steps;
@@ -147,8 +283,36 @@ __global__ void __launch_bounds__(kThreads)
   out[b] = -1;
 }
 
+// ------------------------------------------------------------- launching
+
 unsigned grid_for(int64_t n) {
   return static_cast<unsigned>((n + kThreads - 1) / kThreads);
+}
+
+// Blocks that fill every SM to the occupancy the kernel's registers and
+// shared memory allow (asked once per kernel: the port runs on one card).
+template <typename Kernel>
+int64_t resident_blocks(Kernel kernel) {
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, 0);
+  return static_cast<int64_t>(sms) * (per_sm > 0 ? per_sm : 1);
+}
+
+// A persistent grid: at most one resident wave, never more than `want`.
+unsigned persistent_grid(int64_t full, int64_t want) {
+  return static_cast<unsigned>(want < full ? (want > 0 ? want : 1) : full);
+}
+
+template <int kMode>
+void launch_tiles(const uint32_t* t, const int32_t* s, int64_t W, int rate,
+                  const uint8_t* m, uint8_t* o, cudaStream_t st) {
+  auto kernel = lf_decode_tiles<kMode>;
+  static const int64_t full = resident_blocks(kernel);
+  const int64_t blocks = (W + 32 * kWarps - 1) / (32 * kWarps);
+  kernel<<<persistent_grid(full, blocks), kThreads, 0, st>>>(t, s, W, rate, m,
+                                                             o);
 }
 
 }  // namespace
@@ -158,27 +322,35 @@ extern "C" {
 // W walks (int32 seeds [W]) of `rate` steps over `tab` in `mode` (see the
 // top of this file); writes uint8 out [W, rate].  `bwt` is read in mode 4
 // only, `code_map` (uint8 [16]) in modes 0 and 1 only.  The lfk modes need
-// rate % k == 0.  Enqueues on `stream`, never synchronises, and returns
+// rate % k == 0, rate <= 32 or rate % 32 == 0, and an 8-byte aligned
+// `tab`.  Enqueues on `stream`, never synchronises, and returns
 // cudaGetLastError().  W >= 1.
 int gecoz_lf_decode(const void* tab, const void* bwt, const void* seeds,
                     int64_t W, int rate, int mode, const void* code_map,
                     void* out, void* stream) {
   const auto t = static_cast<const uint32_t*>(tab);
-  const auto bw = static_cast<const uint8_t*>(bwt);
   const auto s = static_cast<const int32_t*>(seeds);
   const auto m = static_cast<const uint8_t*>(code_map);
   const auto o = static_cast<uint8_t*>(out);
   const auto st = static_cast<cudaStream_t>(stream);
-  const unsigned g = grid_for(W);
+  if (mode <= kLfk4 && ((rate > kChunk && rate % kChunk) ||
+                        reinterpret_cast<uintptr_t>(tab) % 8))
+    return static_cast<int>(cudaErrorInvalidValue);
   switch (mode) {
-    case kLfk16: lf_decode<kLfk16><<<g, kThreads, 0, st>>>(t, bw, s, W, rate, m, o); break;
-    case kLfk8: lf_decode<kLfk8><<<g, kThreads, 0, st>>>(t, bw, s, W, rate, m, o); break;
-    case kLfk4: lf_decode<kLfk4><<<g, kThreads, 0, st>>>(t, bw, s, W, rate, m, o); break;
-    case kPacked: lf_decode<kPacked><<<g, kThreads, 0, st>>>(t, bw, s, W, rate, m, o); break;
-    case kPlain: lf_decode<kPlain><<<g, kThreads, 0, st>>>(t, bw, s, W, rate, m, o); break;
+    case kLfk16: launch_tiles<kLfk16>(t, s, W, rate, m, o, st); break;
+    case kLfk8: launch_tiles<kLfk8>(t, s, W, rate, m, o, st); break;
+    case kLfk4: launch_tiles<kLfk4>(t, s, W, rate, m, o, st); break;
+    case kPacked:
+      lf_decode_steps<kPacked><<<grid_for(W), kThreads, 0, st>>>(
+          t, nullptr, s, W, rate, o);
+      break;
+    case kPlain:
+      lf_decode_steps<kPlain><<<grid_for(W), kThreads, 0, st>>>(
+          t, static_cast<const uint8_t*>(bwt), s, W, rate, o);
+      break;
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
-  return cudaGetLastError();
+  return static_cast<int>(cudaGetLastError());
 }
 
 // B locate walks from rows (int32 [B]) over lf_tab (packed != 0: packed
@@ -197,6 +369,46 @@ int gecoz_lf_locate(const void* tab, const void* rows, int64_t B,
       static_cast<const int32_t*>(ssa_perm), sf, packed,
       static_cast<int32_t*>(out));
   return cudaGetLastError();
+}
+
+// The first design of the lfk decode walks, timed beside the new one by
+// chip_smoke.py: one thread per walk, three 4-byte loads an lfk16 row.
+int gecoz_lf_decode_v1(const void* tab, const void* seeds, int64_t W,
+                       int rate, int mode, const void* code_map, void* out,
+                       void* stream) {
+  const auto t = static_cast<const uint32_t*>(tab);
+  const auto s = static_cast<const int32_t*>(seeds);
+  const auto m = static_cast<const uint8_t*>(code_map);
+  const auto o = static_cast<uint8_t*>(out);
+  const auto st = static_cast<cudaStream_t>(stream);
+  const unsigned g = grid_for(W);
+  switch (mode) {
+    case kLfk16: lf_decode_v1<kLfk16><<<g, kThreads, 0, st>>>(t, s, W, rate, m, o); break;
+    case kLfk8: lf_decode_v1<kLfk8><<<g, kThreads, 0, st>>>(t, s, W, rate, m, o); break;
+    case kLfk4: lf_decode_v1<kLfk4><<<g, kThreads, 0, st>>>(t, s, W, rate, m, o); break;
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return cudaGetLastError();
+}
+
+// Load every kernel the paths launch now: the first CUDA call of the
+// library's (static) runtime initialises it, and each attribute query
+// loads a kernel, work that would otherwise fall on the first launch.
+// Returns the first error, or 0.
+int gecoz_lf_init(void) {
+  cudaFuncAttributes a;
+  const void* kernels[] = {
+      reinterpret_cast<const void*>(lf_decode_tiles<kLfk16>),
+      reinterpret_cast<const void*>(lf_decode_tiles<kLfk8>),
+      reinterpret_cast<const void*>(lf_decode_tiles<kLfk4>),
+      reinterpret_cast<const void*>(lf_decode_steps<kPacked>),
+      reinterpret_cast<const void*>(lf_decode_steps<kPlain>),
+      reinterpret_cast<const void*>(lf_locate)};
+  for (const void* k : kernels) {
+    const cudaError_t e = cudaFuncGetAttributes(&a, k);
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  return 0;
 }
 
 const char* gecoz_cuda_error_string(int code) {

@@ -1,1 +1,1 @@
-"""Container encode on the card (headers and serializers from gecoz_tpu)."""
+"""The .gcz/.gcx container and FASTA (copies of gecoz_tpu/formats)."""

@@ -1,0 +1,267 @@
+"""FASTA / FASTQ reading and FASTA writing.
+
+The port's copy of gecoz_tpu/formats/fasta.py: the same code, its gzip and
+BGZF input inflated by Python's `gzip` (multi-member, CRC-checked) where the
+reference runs its own inflater (gecoz_tpu/codec/gzip_file.py); the port
+writes no gzip.
+
+Matches the reference's parsing semantics (nova-formats fasta/
+FastaIterator.java:28-137): records start at '>' or '@', FASTQ quality
+sections ('+') are skipped, CR/LF are stripped, and header text is the full
+line after the marker.  Output matches FastaFileWriter.java:30-224:
+50-character lines, each newline-terminated — including its quirk of an
+extra blank line when the sequence length is an exact multiple of 50 (the
+reserved mmap region is ``len + len/50 + 1`` bytes, FastaFileWriter.java:142).
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from pathlib import Path
+from typing import Iterator
+
+import numpy as np
+
+LINE_LENGTH = 50
+
+
+@dataclass
+class FastaSequence:
+    header: str
+    length: int
+    position: int            # byte offset of sequence data in the file
+    multiline: bool
+    data: np.ndarray | None = None
+
+    def sort_key(self):
+        """TFastaSequence.compareTo: length desc, then header asc."""
+        return (-self.length, self.header)
+
+
+# gzipped inputs are inflated exactly ONCE per process into a temp file
+# shared by every scan / read_sequence call (the reference likewise reads
+# gzipped input once, FastaFileReader.java:~70, README.md:39 — our previous
+# per-call re-inflation was O(S*n) on an S-sequence file).  Keyed by
+# (path, mtime, size); bounded to the most recent few inputs.
+_INFLATED_CACHE: dict[tuple, str] = {}
+_INFLATE_COUNT = 0              # test hook: total inflations performed
+_CACHE_LIMIT = 2
+
+
+def _cleanup_inflated() -> None:
+    import os
+    for tmp in _INFLATED_CACHE.values():
+        try:
+            os.unlink(tmp)
+        except OSError:
+            pass
+    _INFLATED_CACHE.clear()
+
+
+def _inflated_path(path: Path) -> str:
+    """Temp file holding the fully-inflated bytes of a gzipped input."""
+    global _INFLATE_COUNT
+    import atexit
+    import os
+    import tempfile
+    st = path.stat()
+    key = (str(path.resolve()), st.st_mtime_ns, st.st_size)
+    tmp = _INFLATED_CACHE.get(key)
+    if tmp is not None and Path(tmp).is_file():
+        return tmp
+    import gzip
+    import shutil
+    if not _INFLATED_CACHE:
+        atexit.register(_cleanup_inflated)
+    while len(_INFLATED_CACHE) >= _CACHE_LIMIT:
+        _, old = _INFLATED_CACHE.popitem()
+        try:
+            os.unlink(old)
+        except OSError:
+            pass
+    f = tempfile.NamedTemporaryFile(prefix="gecoz_inflated_", delete=False)
+    try:
+        with gzip.open(path, "rb") as gz:
+            shutil.copyfileobj(gz, f, 1 << 20)   # streaming, bounded memory
+        f.close()
+    except BaseException:
+        f.close()
+        os.unlink(f.name)
+        raise
+    _INFLATE_COUNT += 1
+    _INFLATED_CACHE[key] = f.name
+    return f.name
+
+
+def _open_maybe_gzip(path: Path):
+    """Return a seekable binary stream of the (possibly inflated) input
+    (FastaFileReader.java:70-81 trial-open behavior)."""
+    f = open(path, "rb")
+    magic = f.read(2)
+    f.seek(0)
+    if magic == b"\x1f\x8b":
+        f.close()
+        return open(_inflated_path(path), "rb")
+    return f
+
+
+def iter_fasta(path: str | Path, lazy: bool = False) -> Iterator[FastaSequence]:
+    """Stream records; with lazy=True sequence bytes are not materialized
+    (headers + positions only), mirroring FastaFileReader's lazy mode.
+
+    Truly streaming: the file is consumed line by line, so peak memory is
+    O(longest line) in lazy mode (plus the current record's bytes when not
+    lazy) — never the whole file.
+    """
+    path = Path(path)
+    with _open_maybe_gzip(path) as f:
+        pos = 0
+        header: str | None = None
+        seq_start = 0
+        chunks: list[bytes] = []
+        length = 0
+        lines = 0
+
+        def record() -> FastaSequence:
+            data = None
+            if not lazy:
+                data = np.frombuffer(b"".join(chunks), dtype=np.uint8)
+            return FastaSequence(header=header, length=length,
+                                 position=seq_start, multiline=lines > 1,
+                                 data=data)
+
+        line = f.readline()
+        while line:
+            pos += len(line)
+            mark = line[:1]
+            if mark in (b">", b"@"):
+                if header is not None:
+                    yield record()
+                header = line[1:].rstrip(b"\r\n").decode()
+                seq_start = pos
+                chunks, length, lines = [], 0, 0
+            elif mark == b"+" and header is not None:
+                # FASTQ: skip the quality block (same #bytes as sequence)
+                qlen = qlines = 0
+                line = f.readline()
+                while line and qlen < length and qlines < lines:
+                    pos += len(line)
+                    qlen += len(line.rstrip(b"\r\n"))
+                    qlines += 1
+                    line = f.readline()
+                continue                  # `line` not yet consumed/counted
+            elif header is not None:
+                s = line.rstrip(b"\r\n")
+                if s:
+                    lines += 1
+                    length += len(s)
+                    if not lazy:
+                        chunks.append(s)
+            line = f.readline()
+        if header is not None:
+            yield record()
+
+
+def read_sequence(path: str | Path, seq: FastaSequence) -> np.ndarray:
+    """Materialize a lazily-scanned sequence."""
+    if seq.data is not None:
+        return seq.data
+    with _open_maybe_gzip(Path(path)) as f:
+        f.seek(seq.position)
+        out = bytearray()
+        while len(out) < seq.length:
+            line = f.readline()
+            if not line:
+                break
+            out += line.rstrip(b"\r\n")
+    return np.frombuffer(bytes(out[:seq.length]), dtype=np.uint8)
+
+
+def format_fasta_record(header: str, data: np.ndarray | bytes) -> bytes:
+    """One output record in the reference's exact byte layout."""
+    data = bytes(data)
+    n = len(data)
+    out = bytearray()
+    out += b">" + header.encode() + b"\n"
+    for i in range(0, n, LINE_LENGTH):
+        out += data[i:i + LINE_LENGTH]
+        out += b"\n"
+    if n % LINE_LENGTH == 0 and n > 0:
+        out += b"\n"   # FastaFileWriter's reserved-size quirk
+    return bytes(out)
+
+
+def record_size(header: str, n: int) -> int:
+    """Exact byte size of one output record (the reference pre-reserves
+    this region per sequence, FastaFileWriter.java:142 — ``len + len/50 + 1``
+    plus the header line)."""
+    hlen = len(header.encode()) + 2          # '>' + header + '\n'
+    if n == 0:
+        return hlen
+    nlines = -(-n // LINE_LENGTH)
+    return hlen + n + nlines + (1 if n % LINE_LENGTH == 0 else 0)
+
+
+def write_fasta_segment(mm: np.ndarray, rec_off: int, header_len: int,
+                        seqlen: int, p0: int, p1: int,
+                        data: np.ndarray) -> None:
+    """Write sequence positions [p0, p1) of one record into its reflowed
+    50-char-line region of the pre-sized output (mm = uint8 view of the
+    file).  Also writes the newline of every line whose LAST character the
+    segment covers (incl. the exact-multiple-of-50 quirk's extra blank
+    line), so disjoint segments touch disjoint bytes — the concurrency
+    contract the reference gets from per-sequence mmap regions
+    (FastaFileWriter.java:30-224), here at chunk granularity.
+    """
+    LL = LINE_LENGTH
+    base = rec_off + header_len
+    if p1 <= p0:
+        return
+
+    def off(p: int) -> int:                 # file offset of position p
+        return base + p + p // LL
+
+    pos = p0
+    # head partial line
+    if p0 % LL:
+        stop = min(p1, (p0 // LL + 1) * LL)
+        mm[off(p0):off(p0) + (stop - p0)] = data[:stop - p0]
+        if stop == (p0 // LL + 1) * LL:      # completed line -> its newline
+            mm[off(stop - 1) + 1] = ord("\n")
+        pos = stop
+    # full lines (strided block copy)
+    nfull = (p1 - pos) // LL
+    if nfull > 0:
+        row = pos // LL
+        src = data[pos - p0:pos - p0 + nfull * LL].reshape(nfull, LL)
+        view = mm[base + row * (LL + 1):
+                  base + (row + nfull) * (LL + 1)].reshape(nfull, LL + 1)
+        view[:, :LL] = src
+        view[:, LL] = ord("\n")
+        pos += nfull * LL
+    # tail partial line
+    if pos < p1:
+        mm[off(pos):off(pos) + (p1 - pos)] = data[pos - p0:]
+    # end-of-record newlines
+    if p1 == seqlen:
+        if seqlen % LL == 0:
+            mm[base + seqlen + seqlen // LL] = ord("\n")   # quirk blank line
+        else:
+            mm[off(seqlen - 1) + 1] = ord("\n")
+
+
+class FastaWriter:
+    def __init__(self, path: str | Path):
+        self.f = open(path, "wb")
+
+    def write(self, header: str, data) -> None:
+        self.f.write(format_fasta_record(header, data))
+
+    def close(self) -> None:
+        self.f.close()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()

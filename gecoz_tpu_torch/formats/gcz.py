@@ -1,34 +1,138 @@
-"""`.gcz`/`.gcx` block encode on the card.
+"""`.gcz` / `.gcx` container format: block headers, encode, writer, reader.
 
-Port of the encode half of gecoz_tpu/formats/gcz.py (100-240): the suffix
-sort, BWT and wavelet bit planes run on the device; the sampled suffix
-array and the serialization run on the host, through gecoz_tpu's own
-(framework-free) header and serializer code, so the bytes are the
-reference's.
+The port's copy of gecoz_tpu/formats/gcz.py, with the encode on the card.
+Headers, serializers and the reader are the reference's code (imports
+changed only), so the bytes are the reference's:
 
+* GecozRefBlockHeader.java:39-137 — "GecozBWT", version 1, size u64 LE,
+  len u64 LE, ``\\0``-separated header list, double-``\\0`` terminated.
+* GecozSSABlockHeader.java:38-79 — "GecozSSA", version 1, len u64 LE,
+  headers-hash u64 LE; fixed 25 bytes.
+* GecozFileWriter.java:61-310 — per block: [ref header | RFC1951 lengths
+  table (byte aligned) | HSWT nodes pre-order]; `.gcx`: [ssa header | rank
+  vector | index wavelet tree].
+* GecozFileReader.java:58-200 — chained header scan; sampling factor
+  re-derived from total `.gcx` size (140-149).
+
+`encode_block` runs the suffix sort, BWT and wavelet bit planes on the
+device; the sampled suffix array and the serialization run on the host.
 Unlike the reference, a failed device step raises: there is no quiet host
 fallback, no `auto` probe and no packed upload.  A block whose suffix sort
 does not fit one card raises too; the sharded suffix sort is ROADMAP A9.
+`encode_block_host` is the reference's host tier, the card's oracle.
 """
 
 from __future__ import annotations
 
+import struct
+from dataclasses import dataclass
 from pathlib import Path
 
 import numpy as np
 import torch
 
-from gecoz_tpu.formats.gcz import (DEFAULT_SAMPLING_RATE, SSA_HEADER_LEN,
-                                   RefBlockHeader, default_gcx_path,
-                                   ref_header_length, write_ssa_header)
-from gecoz_tpu.index.hswt import HSWT
-from gecoz_tpu.index.shape import HSWTShape
-from gecoz_tpu.index.ssa import SampledSAIndex, index_size
-from gecoz_tpu.utils import metrics
+from gecoz_tpu_torch.index.fm import FMIndex
+from gecoz_tpu_torch.index.hswt import HSWT
+from gecoz_tpu_torch.index.shape import HSWTShape
+from gecoz_tpu_torch.index.ssa import SampledSAIndex, index_size
+from gecoz_tpu_torch.ops.sa import bwt_from_sa, suffix_array
 from gecoz_tpu_torch.ops.sa_device import suffix_array_device
 from gecoz_tpu_torch.ops.wavelet import build_hswt_device
+from gecoz_tpu_torch.utils import metrics
 from gecoz_tpu_torch.utils.device import device as default_device
 from gecoz_tpu_torch.utils.device import sync
+from gecoz_tpu_torch.utils.hostmem import warm_for_block
+
+REF_MAGIC = b"GecozBWT"
+SSA_MAGIC = b"GecozSSA"
+VERSION = 1
+SSA_HEADER_LEN = 25
+DEFAULT_SAMPLING_RATE = 32
+
+
+def header_hash(headers: list[str]) -> int:
+    """Java-style 31x string hash over all headers, mod 2^64
+    (GecozRefBlockHeader.getBlockHeaderHash:120-128)."""
+    h = 1125899906842597
+    for header in headers:
+        for ch in header:
+            h = ((h << 5) - h + ord(ch)) & 0xFFFFFFFFFFFFFFFF
+    return h
+
+
+@dataclass
+class RefBlockHeader:
+    headers: list[str]
+    size: int   # total block size incl. this header
+    len: int    # generalized string length
+
+    @property
+    def header_length(self) -> int:
+        return ref_header_length(self.headers)
+
+    def write(self) -> bytes:
+        out = bytearray()
+        out += REF_MAGIC
+        out.append(VERSION)
+        out += struct.pack("<QQ", self.size, self.len)
+        for h in self.headers:
+            out += h.encode() + b"\0"
+        out += b"\0"
+        return bytes(out)
+
+    @classmethod
+    def parse(cls, buf: bytes, offset: int) -> "RefBlockHeader":
+        # NB the reference ignores magic/version mismatches silently
+        # (GecozRefBlockHeader.java:64-66); we validate.
+        if buf[offset:offset + 8] != REF_MAGIC or buf[offset + 8] != VERSION:
+            raise ValueError("bad gcz block header")
+        size, length = struct.unpack_from("<QQ", buf, offset + 9)
+        headers = []
+        p = offset + 25
+        while buf[p] != 0:
+            q = buf.index(b"\0", p)
+            headers.append(buf[p:q].decode())
+            p = q + 1
+        return cls(headers=headers, size=size, len=length)
+
+
+def ref_header_length(headers: list[str]) -> int:
+    return 26 + sum(len(h.encode()) + 1 for h in headers)
+
+
+def write_ssa_header(headers: list[str], idx_size: int) -> bytes:
+    return SSA_MAGIC + bytes([VERSION]) + struct.pack(
+        "<QQ", idx_size, header_hash(headers))
+
+
+def parse_ssa_header(buf: bytes, offset: int) -> tuple[int, int]:
+    if buf[offset:offset + 8] != SSA_MAGIC or buf[offset + 8] != VERSION:
+        raise ValueError("bad gcx block header")
+    length, hsh = struct.unpack_from("<QQ", buf, offset + 9)
+    return length, hsh
+
+
+# -- block encode ----------------------------------------------------------
+
+def _serialize(headers: list[str], n: int, shape: HSWTShape, hswt: HSWT,
+               sa: np.ndarray, sampling_rate: int) -> tuple[bytes, bytes]:
+    """(gcz_block, gcx_block) of one encoded block
+    (GecozFileWriter.java:124-159): ref header + wavelet nodes, ssa header
+    + sampled suffix array."""
+    ssa = SampledSAIndex.build(sa, sampling_rate)
+    block_size = ref_header_length(headers) + shape.size
+    gcz = RefBlockHeader(headers, block_size, n).write() + hswt.serialize()
+    if len(gcz) != block_size:
+        raise RuntimeError(f"gcz block is {len(gcz)} bytes, header says "
+                           f"{block_size}")
+    sf = sampling_rate.bit_length() - 1
+    idx_size = index_size(n, sf)
+    gcx = write_ssa_header(headers, idx_size) + ssa.serialize()
+    if len(gcx) != SSA_HEADER_LEN + idx_size:
+        raise RuntimeError(f"gcx block is {len(gcx)} bytes, expected "
+                           f"{SSA_HEADER_LEN + idx_size}")
+    return gcz, gcx
+
 
 def _encode_on_device(data: np.ndarray, shape: HSWTShape,
                       dev: torch.device, strategy: str = "sort"):
@@ -65,26 +169,33 @@ def encode_block(data: np.ndarray, headers: list[str],
         raise ValueError("blocks are capped at 2^31 bytes by the int32-SA "
                          "contract (SAIS.java:103)")
     dev = default_device(device)
-    from gecoz_tpu.utils.hostmem import warm_for_block
     warm_for_block(n)
     counts = np.bincount(data, minlength=256).astype(np.int64)
     shape = HSWTShape.from_counts(counts)
     sa, hswt = _encode_on_device(data, shape, dev, strategy)
     with metrics.phase("encode.serialize", n):
-        ssa = SampledSAIndex.build(sa, sampling_rate)
-        block_size = ref_header_length(headers) + shape.size
-        gcz = RefBlockHeader(headers, block_size, n).write() \
-            + hswt.serialize()
-        if len(gcz) != block_size:
-            raise RuntimeError(f"gcz block is {len(gcz)} bytes, header "
-                               f"says {block_size}")
-        sf = sampling_rate.bit_length() - 1
-        idx_size = index_size(n, sf)
-        gcx = write_ssa_header(headers, idx_size) + ssa.serialize()
-        if len(gcx) != SSA_HEADER_LEN + idx_size:
-            raise RuntimeError(f"gcx block is {len(gcx)} bytes, expected "
-                               f"{SSA_HEADER_LEN + idx_size}")
-    return gcz, gcx
+        return _serialize(headers, n, shape, hswt, sa, sampling_rate)
+
+
+def encode_block_host(data: np.ndarray, headers: list[str],
+                      sampling_rate: int = DEFAULT_SAMPLING_RATE,
+                      backend: str = "native") -> tuple[bytes, bytes]:
+    """The reference's host tier of `encode_block` (gecoz_tpu/formats/
+    gcz.py:145-202 with backend "native" or "numpy"): suffix array by the
+    host library's SA-IS (or numpy prefix doubling), BWT gather and
+    wavelet fill on the host.  Nothing runs on the card; `chip_smoke.py`
+    holds the card's bytes against these."""
+    data = np.asarray(data, dtype=np.uint8)
+    n = len(data)
+    if n >= 1 << 31:
+        raise ValueError("blocks are capped at 2^31 bytes by the int32-SA "
+                         "contract (SAIS.java:103)")
+    warm_for_block(n)
+    counts = np.bincount(data, minlength=256).astype(np.int64)
+    shape = HSWTShape.from_counts(counts)
+    sa = suffix_array(data, backend=backend)
+    hswt = HSWT.build(bwt_from_sa(data, sa), shape)
+    return _serialize(headers, n, shape, hswt, sa, sampling_rate)
 
 
 class GecozWriter:
@@ -123,3 +234,95 @@ class GecozWriter:
 
     def __exit__(self, *exc):
         self.close()
+
+
+def default_gcx_path(ref_path: Path) -> Path:
+    name = ref_path.name
+    if name.endswith(".gcz"):
+        name = name[:-3]
+    return ref_path.with_name(name + "gcx")
+
+
+class GecozReader:
+    """Reader for a .gcz (+ optional .gcx) pair."""
+
+    def __init__(self, ref_path: str | Path):
+        ref_path = Path(ref_path)
+        # memory-mapped: block reads touch only their own byte ranges
+        # (the reference mmaps per block, GecozFileReader.java:123)
+        self.ref_data = np.memmap(ref_path, dtype=np.uint8, mode="r")
+        ssa_path = default_gcx_path(ref_path)
+        self.ssa_data = (np.memmap(ssa_path, dtype=np.uint8, mode="r")
+                         if ssa_path.is_file() else None)
+
+        self.headers: list[RefBlockHeader] = []
+        self.offsets: list[int] = []
+        pos = 0
+        total = len(self.ref_data)
+        while pos < total:
+            # headers are small; parse from a bounded window
+            win = bytes(self.ref_data[pos:pos + (1 << 16)])
+            h = RefBlockHeader.parse(win, 0)
+            self.headers.append(h)
+            self.offsets.append(pos)
+            pos += h.size
+
+        self.sampling_factor = self._derive_sampling_factor()
+
+    def _derive_sampling_factor(self) -> int | None:
+        """GecozFileReader.java:134-149."""
+        if self.ssa_data is None:
+            return None
+        data_len = len(self.ssa_data) - len(self.headers) * SSA_HEADER_LEN
+        sf = -1
+        while True:
+            sf += 1
+            total = sum(index_size(h.len, sf) for h in self.headers)
+            if data_len >= total:
+                return sf
+            if sf > 40:
+                raise ValueError("cannot derive sampling factor")
+
+    def find_block(self, header: str) -> RefBlockHeader | None:
+        for h in self.headers:
+            if header in h.headers:
+                return h
+        return None
+
+    def read(self, bheader: RefBlockHeader) -> FMIndex:
+        i = self.headers.index(bheader)
+        off = self.offsets[i] + bheader.header_length
+        hswt = HSWT.read(self.ref_data[off:self.offsets[i] + bheader.size],
+                         bheader.len)
+        if self.ssa_data is None:
+            # counting still works (occ-only); locate/extract need samples.
+            # NB the reference silently builds a broken index here
+            # (GSSAIndex.java:88-127) and then hangs/corrupts on locate;
+            # we expose a count-only FM-index instead.
+            return FMIndex(hswt, None)
+        sf = self.sampling_factor
+        ssa_pos = 0
+        for h in self.headers:
+            if h is bheader:
+                break
+            ssa_pos += SSA_HEADER_LEN + index_size(h.len, sf)
+        blen, hsh = parse_ssa_header(
+            bytes(self.ssa_data[ssa_pos:ssa_pos + SSA_HEADER_LEN + len(REF_MAGIC)]), 0)
+        if hsh != header_hash(bheader.headers):
+            raise ValueError("gcx header hash mismatch")
+        if blen != index_size(bheader.len, sf):
+            raise ValueError("gcx block length mismatch")
+        ssa = SampledSAIndex.deserialize(
+            self.ssa_data[ssa_pos + SSA_HEADER_LEN:], bheader.len, sf)
+        return FMIndex(hswt, ssa)
+
+    def check_format(self) -> bool:
+        return bytes(self.ref_data[:8]) == REF_MAGIC
+
+
+def check_format(path: str | Path) -> bool:
+    try:
+        with open(path, "rb") as f:
+            return f.read(8) == REF_MAGIC
+    except OSError:
+        return False

@@ -1,0 +1,257 @@
+"""ctypes bindings for the port's host C++ library.
+
+The port's copy of gecoz_tpu/native/__init__.py for the entry points the
+port's host modules call: SA-IS (`sais`), the BWT gather (`bwt`), the
+rank-vector layout (`interleave_rbv`, `deinterleave_rbv`), the LF table
+and decode walks (`lf_build`, `fm_decode`, `fm_decode_walks`) and the
+wavelet fill and partition (`hswt_fill`, `wt_partition`).  The sources are
+`csrc/host/sais.cpp` and `csrc/host/hswt_fill.cpp`, copies of the
+reference's; `kernels/_build.py::load_host` builds them with g++ into
+`gecoz_tpu_torch/build/` at first use.
+
+As in the reference, the callers check `available()` and take their numpy
+route when the library cannot be built or loaded; `error()` says why.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import threading
+
+import numpy as np
+
+_LIB: ctypes.CDLL | None = None
+_TRIED = False
+_ERROR: str | None = None
+_LOCK = threading.Lock()
+
+
+def _load() -> ctypes.CDLL | None:
+    global _LIB, _TRIED, _ERROR
+    with _LOCK:
+        if _LIB is not None or _TRIED:
+            return _LIB
+        _TRIED = True
+        try:
+            from gecoz_tpu_torch.kernels import _build
+            lib = _build.load_host()
+            _declare(lib)
+            _LIB = lib
+        except Exception as ex:                # noqa: BLE001 - numpy route
+            _ERROR = f"{type(ex).__name__}: {ex}"
+        return _LIB
+
+
+def _declare(lib: ctypes.CDLL) -> None:
+    lib.gecoz_sais_u8.argtypes = [
+        ctypes.POINTER(ctypes.c_uint8), ctypes.c_int32,
+        ctypes.POINTER(ctypes.c_int32)]
+    lib.gecoz_bwt.argtypes = [
+        ctypes.POINTER(ctypes.c_uint8), ctypes.POINTER(ctypes.c_int32),
+        ctypes.c_int32, ctypes.POINTER(ctypes.c_uint8)]
+    lib.gecoz_interleave_rbv.argtypes = [
+        ctypes.POINTER(ctypes.c_uint8), ctypes.c_int64,
+        ctypes.POINTER(ctypes.c_uint8)]
+    lib.gecoz_deinterleave_rbv.argtypes = [
+        ctypes.POINTER(ctypes.c_uint8), ctypes.c_int64,
+        ctypes.POINTER(ctypes.c_uint8)]
+    lib.gecoz_fm_decode.argtypes = [
+        ctypes.POINTER(ctypes.c_uint8), ctypes.c_int64, ctypes.c_int64,
+        ctypes.POINTER(ctypes.c_int64), ctypes.c_int64, ctypes.c_int64,
+        ctypes.c_int64, ctypes.POINTER(ctypes.c_uint8)]
+    lib.gecoz_lf_build.argtypes = [
+        ctypes.POINTER(ctypes.c_uint8), ctypes.c_int64, ctypes.c_int64,
+        ctypes.POINTER(ctypes.c_int32)]
+    lib.gecoz_fm_decode_walks.argtypes = [
+        ctypes.POINTER(ctypes.c_uint8), ctypes.c_int64,
+        ctypes.POINTER(ctypes.c_int32), ctypes.POINTER(ctypes.c_int64),
+        ctypes.c_int64, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
+        ctypes.POINTER(ctypes.c_uint8)]
+    lib.gecoz_wt_partition.argtypes = [
+        ctypes.POINTER(ctypes.c_uint8), ctypes.POINTER(ctypes.c_int32),
+        ctypes.c_int64, ctypes.POINTER(ctypes.c_int32),
+        ctypes.POINTER(ctypes.c_int32)]
+    lib.gecoz_wt_partition.restype = ctypes.c_int64
+    lib.gecoz_hswt_fill.argtypes = [
+        ctypes.POINTER(ctypes.c_uint8), ctypes.c_int64,
+        ctypes.POINTER(ctypes.c_int32), ctypes.POINTER(ctypes.c_uint8),
+        ctypes.POINTER(ctypes.c_uint8),
+        ctypes.POINTER(ctypes.c_int64), ctypes.c_int64,
+        ctypes.POINTER(ctypes.c_uint8)]
+
+
+def error() -> str | None:
+    """Why the host library did not load (None if it did or was not tried)."""
+    return _ERROR
+
+
+def available() -> bool:
+    return _load() is not None
+
+
+def _u8ptr(a: np.ndarray):
+    return a.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8))
+
+
+def _i32ptr(a: np.ndarray):
+    return a.ctypes.data_as(ctypes.POINTER(ctypes.c_int32))
+
+
+def sais(s: np.ndarray) -> np.ndarray:
+    """True suffix array via native SA-IS (linear time)."""
+    lib = _load()
+    if lib is None:
+        raise RuntimeError("native library unavailable")
+    s = np.ascontiguousarray(s, dtype=np.uint8)
+    n = len(s)
+    sa = np.empty(n, dtype=np.int32)
+    if n:
+        lib.gecoz_sais_u8(_u8ptr(s), n, _i32ptr(sa))
+    return sa.astype(np.int64)
+
+
+def bwt(s: np.ndarray, sa: np.ndarray) -> np.ndarray:
+    lib = _load()
+    if lib is None:
+        raise RuntimeError("native library unavailable")
+    s = np.ascontiguousarray(s, dtype=np.uint8)
+    sa32 = np.ascontiguousarray(sa, dtype=np.int32)
+    out = np.empty(len(s), dtype=np.uint8)
+    if len(s):
+        lib.gecoz_bwt(_u8ptr(s), _i32ptr(sa32), len(s), _u8ptr(out))
+    return out
+
+
+def interleave_rbv(data: np.ndarray, length_bits: int,
+                   out_size: int) -> np.ndarray:
+    lib = _load()
+    if lib is None:
+        raise RuntimeError("native library unavailable")
+    data = np.ascontiguousarray(data, dtype=np.uint8)
+    out = np.zeros(out_size, dtype=np.uint8)
+    lib.gecoz_interleave_rbv(_u8ptr(data), length_bits, _u8ptr(out))
+    return out
+
+
+def deinterleave_rbv(buf: np.ndarray, length_bits: int) -> np.ndarray:
+    lib = _load()
+    if lib is None:
+        raise RuntimeError("native library unavailable")
+    buf = np.ascontiguousarray(buf, dtype=np.uint8)
+    out = np.zeros((length_bits + 7) >> 3, dtype=np.uint8)
+    lib.gecoz_deinterleave_rbv(_u8ptr(buf), length_bits, _u8ptr(out))
+    return out
+
+
+def fm_decode(bwt: np.ndarray, wrap_row: int, seeds: np.ndarray,
+              rate: int, tail_rewind: int = 0) -> np.ndarray:
+    """Full-text decode via C++ LF walks (one per sampling interval)."""
+    lib = _load()
+    if lib is None:
+        raise RuntimeError("native library unavailable")
+    bwt = np.ascontiguousarray(bwt, dtype=np.uint8)
+    seeds = np.ascontiguousarray(seeds, dtype=np.int64)
+    n = len(bwt)
+    text = np.zeros(n, dtype=np.uint8)
+    if n:
+        lib.gecoz_fm_decode(
+            _u8ptr(bwt), n, wrap_row,
+            seeds.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)),
+            len(seeds), rate, tail_rewind, _u8ptr(text))
+    return text
+
+
+def lf_build(bwt: np.ndarray, wrap_row: int) -> np.ndarray:
+    """Corrected LF table as int32 (4 bytes/row; blocks are int32-capped)."""
+    lib = _load()
+    if lib is None:
+        raise RuntimeError("native library unavailable")
+    bwt = np.ascontiguousarray(bwt, dtype=np.uint8)
+    lf = np.empty(len(bwt), dtype=np.int32)
+    if len(bwt):
+        lib.gecoz_lf_build(_u8ptr(bwt), len(bwt), wrap_row, _i32ptr(lf))
+    return lf
+
+
+def fm_decode_walks(bwt: np.ndarray, lf: np.ndarray, seeds: np.ndarray,
+                    w0: int, w1: int, rate: int,
+                    tail_rewind: int = 0) -> np.ndarray:
+    """Decode walks [w0, w1) with a prebuilt LF table; returns the bytes of
+    global positions [w0*rate, min(w1*rate, n-1)).  Releases the GIL, so
+    chunk workers scale across threads."""
+    lib = _load()
+    if lib is None:
+        raise RuntimeError("native library unavailable")
+    bwt = np.ascontiguousarray(bwt, dtype=np.uint8)
+    lf = np.ascontiguousarray(lf, dtype=np.int32)
+    seeds = np.ascontiguousarray(seeds, dtype=np.int64)
+    n = len(bwt)
+    out_len = min(w1 * rate, n - 1) - w0 * rate
+    text = np.zeros(max(out_len, 0), dtype=np.uint8)
+    if out_len > 0:
+        lib.gecoz_fm_decode_walks(
+            _u8ptr(bwt), n, _i32ptr(lf),
+            seeds.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)),
+            w0, w1, rate, tail_rewind, _u8ptr(text))
+    return text
+
+
+def hswt_fill(bwt: np.ndarray, codes: np.ndarray, bit_lengths: np.ndarray,
+              node_keys: list, node_lengths: dict):
+    """One-pass wavelet fill: {(level, prefix): packed LSB-first bits}.
+
+    `node_keys` is the shape's node list; `node_lengths` maps each key to
+    its exact bit length (from symbol counts).  Returns per-node packed
+    byte arrays (views into one arena — callers must not mutate)."""
+    lib = _load()
+    if lib is None:
+        raise RuntimeError("native library unavailable")
+    bwt = np.ascontiguousarray(bwt, dtype=np.uint8)
+    kidx = {key: i for i, key in enumerate(node_keys)}
+    node_off = np.zeros(max(len(node_keys), 1), dtype=np.int64)
+    off = 0
+    for i, key in enumerate(node_keys):
+        node_off[i] = off
+        off += (int(node_lengths[key]) + 7) >> 3
+    path_node = np.zeros(256 * 64, dtype=np.int32)
+    path_bit = np.zeros(256 * 64, dtype=np.uint8)
+    path_len = np.zeros(256, dtype=np.uint8)
+    for s in np.flatnonzero(np.asarray(bit_lengths) > 0):
+        L = int(bit_lengths[s])
+        if L > 64:
+            raise ValueError("code deeper than 64 levels")
+        code = int(codes[s])
+        path_len[s] = L
+        for lvl in range(L):
+            path_node[(s << 6) + lvl] = kidx[(lvl, code & ((1 << lvl) - 1))]
+            path_bit[(s << 6) + lvl] = (code >> lvl) & 1
+    arena = np.zeros(max(off, 1), dtype=np.uint8)
+    if len(bwt):
+        lib.gecoz_hswt_fill(
+            _u8ptr(bwt), len(bwt), _i32ptr(path_node), _u8ptr(path_bit),
+            _u8ptr(path_len),
+            node_off.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)),
+            len(node_keys), _u8ptr(arena))
+    # the per-node results below are views into this one arena: freeze it so
+    # accidental mutation of one node raises instead of corrupting neighbors
+    arena.flags.writeable = False
+    out = {}
+    for i, key in enumerate(node_keys):
+        nb = (int(node_lengths[key]) + 7) >> 3
+        out[key] = arena[node_off[i]:node_off[i] + nb]
+    return out
+
+
+def wt_partition(bits: np.ndarray, positions: np.ndarray):
+    """Split a wavelet node's element positions by its bit vector."""
+    lib = _load()
+    if lib is None:
+        raise RuntimeError("native library unavailable")
+    bits = np.ascontiguousarray(bits, dtype=np.uint8)
+    positions = np.ascontiguousarray(positions, dtype=np.int32)
+    left = np.empty(len(positions), dtype=np.int32)
+    right = np.empty(len(positions), dtype=np.int32)
+    nl = lib.gecoz_wt_partition(
+        _u8ptr(bits), _i32ptr(positions), len(positions),
+        _i32ptr(left), _i32ptr(right))
+    return left[:nl], right[:len(positions) - nl]

@@ -11,16 +11,18 @@ version beside it:
   -> int32 [B], -1 where no sampled row was reached in rate+1 reads.
 
 On CUDA tensors they launch the hand-written Hopper kernel
-(`csrc/lfwalk.cu`, built at first use) and add one to their count in
-`LAUNCHES`; a failed build or launch raises.  On CPU tensors they run the
-plain versions (`decode_walks_ref`, `locate_walks_ref`), which the card is
-also checked against.  uint32 rows are held in int32 tensors with the same
-bits; bit 31 of an `lf_tab` row marks a sampled row.
+(`csrc/lfwalk.cu`, built at first use, its kernels loaded by `_lib()`) and
+add one to their count in `LAUNCHES`; a failed build or launch raises.
+On CPU tensors they run the plain versions (`decode_walks_ref`,
+`locate_walks_ref`), which the card is also checked against.  uint32 rows
+are held in int32 tensors with the same bits; bit 31 of an `lf_tab` row
+marks a sampled row.
 """
 
 from __future__ import annotations
 
 import ctypes
+import time
 
 import torch
 
@@ -32,6 +34,7 @@ _I32 = torch.int32
 MODES = {"lfk16": (16, 3), "lfk8": (8, 2), "lfk4": (4, 2),
          "packed": (1, 0), "plain": (1, 0)}
 _MODE_ID = {"lfk16": 0, "lfk8": 1, "lfk4": 2, "packed": 3, "plain": 4}
+_CHUNK = 32             # bytes a walk the lfk kernel stages at a time
 
 # launches of the CUDA kernel per entry point; plain versions never count
 LAUNCHES: dict[str, int] = {"decode": 0, "locate": 0}
@@ -43,24 +46,35 @@ def reset_launches() -> None:
 
 
 _LIB: ctypes.CDLL | None = None
+INIT_SECONDS: float | None = None       # the kernels' load time (_lib())
 
 
 def _lib() -> ctypes.CDLL:
-    """The built kernel library, its C signatures declared (first use)."""
-    global _LIB
+    """The built kernel library, its C signatures declared and its kernels
+    loaded (first use): the first CUDA call of the library's own runtime
+    and each kernel's module load happen here, not in the first launch."""
+    global _LIB, INIT_SECONDS
     if _LIB is not None:
         return _LIB
     from gecoz_tpu_torch.kernels import _build
     lib = _build.load("lfwalk")
-    P = ctypes.c_void_p
-    lib.gecoz_lf_decode.argtypes = [P, P, P, ctypes.c_int64, ctypes.c_int,
-                                    ctypes.c_int, P, P, P]
-    lib.gecoz_lf_decode.restype = ctypes.c_int
-    lib.gecoz_lf_locate.argtypes = [P, P, ctypes.c_int64, P, P, P,
-                                    ctypes.c_int, ctypes.c_int, P, P]
-    lib.gecoz_lf_locate.restype = ctypes.c_int
+    P, I, I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+    lib.gecoz_lf_decode.argtypes = [P, P, P, I64, I, I, P, P, P]
+    lib.gecoz_lf_locate.argtypes = [P, P, I64, P, P, P, I, I, P, P]
+    lib.gecoz_lf_decode_v1.argtypes = [P, P, I64, I, I, P, P, P]
+    for fn in (lib.gecoz_lf_decode, lib.gecoz_lf_locate,
+               lib.gecoz_lf_decode_v1, lib.gecoz_lf_init):
+        fn.restype = ctypes.c_int
+    lib.gecoz_lf_init.argtypes = []
     lib.gecoz_cuda_error_string.argtypes = [ctypes.c_int]
     lib.gecoz_cuda_error_string.restype = ctypes.c_char_p
+    t0 = time.perf_counter()
+    rc = lib.gecoz_lf_init()
+    if rc != 0:
+        msg = lib.gecoz_cuda_error_string(rc).decode()
+        raise RuntimeError(f"lf_walk kernels did not load: CUDA error {rc}: "
+                           f"{msg}")
+    INIT_SECONDS = time.perf_counter() - t0
     _LIB = lib
     return lib
 
@@ -133,6 +147,15 @@ def _check_decode(tab, seeds, rate, mode, bwt, code_map) -> None:
     if rate < 1 or rate % k:
         raise ValueError(f"decode_walks: rate {rate} is not a positive "
                          f"multiple of {k} ({mode})")
+    if width:
+        # the kernel stages min(rate, 32) bytes a walk and reads rows in
+        # 8-byte loads
+        if rate > _CHUNK and rate % _CHUNK:
+            raise ValueError(f"decode_walks: rate {rate} is above {_CHUNK} "
+                             f"and not a multiple of it ({mode})")
+        if tab.data_ptr() % 8:
+            raise ValueError(f"decode_walks: {mode} tab must be 8-byte "
+                             "aligned")
     if mode == "plain":
         if bwt is None:
             raise TypeError("decode_walks: mode plain reads bwt")
@@ -160,19 +183,34 @@ def decode_walks(tab: torch.Tensor, seeds: torch.Tensor, rate: int,
         if seeds.device.type != "cpu":
             raise TypeError(f"decode_walks: unsupported device {seeds.device}")
         return decode_walks_ref(tab, seeds, rate, mode, bwt, code_map)
+    out = _decode_launch(tab, seeds, rate, mode, bwt, code_map)
+    if seeds.shape[0]:
+        LAUNCHES["decode"] += 1
+    return out
+
+
+def _decode_launch(tab, seeds, rate, mode, bwt, code_map,
+                   v1: bool = False) -> torch.Tensor:
+    """One launch of the decode kernel on checked CUDA tensors; v1=True
+    launches the first design of the lfk modes instead, which chip_smoke.py
+    times beside it."""
     W = seeds.shape[0]
     out = torch.empty((W, rate), dtype=torch.uint8, device=seeds.device)
     if W == 0:
         return out
     lib = _lib()
+    cmap = code_map.data_ptr() if mode in ("lfk16", "lfk8") else None
     with torch.cuda.device(seeds.device):
-        rc = lib.gecoz_lf_decode(
-            tab.data_ptr(), bwt.data_ptr() if mode == "plain" else None,
-            seeds.data_ptr(), W, rate, _MODE_ID[mode],
-            code_map.data_ptr() if mode in ("lfk16", "lfk8") else None,
-            out.data_ptr(), _stream(seeds.device))
+        if v1:
+            rc = lib.gecoz_lf_decode_v1(
+                tab.data_ptr(), seeds.data_ptr(), W, rate, _MODE_ID[mode],
+                cmap, out.data_ptr(), _stream(seeds.device))
+        else:
+            rc = lib.gecoz_lf_decode(
+                tab.data_ptr(), bwt.data_ptr() if mode == "plain" else None,
+                seeds.data_ptr(), W, rate, _MODE_ID[mode], cmap,
+                out.data_ptr(), _stream(seeds.device))
     _raise_on(rc, f"decode ({mode}, W={W}, rate={rate})")
-    LAUNCHES["decode"] += 1
     return out
 
 
@@ -225,8 +263,11 @@ def locate_walks(tab: torch.Tensor, rows: torch.Tensor,
                     ("ssa_perm", ssa_perm)):
         _want(t, name, _I32, 1, dev)
     B = rows.shape[0]
-    if B and (int(rows.min()) < 0 or int(rows.max()) >= tab.shape[0]):
-        raise IndexError(f"locate_walks: rows outside [0, {tab.shape[0]})")
+    if B:
+        lo, hi = torch.stack(torch.aminmax(rows)).tolist()   # one sync
+        if lo < 0 or hi >= tab.shape[0]:
+            raise IndexError(f"locate_walks: rows outside [0, "
+                             f"{tab.shape[0]})")
     if not rows.is_cuda:
         if dev.type != "cpu":
             raise TypeError(f"locate_walks: unsupported device {dev}")

@@ -14,8 +14,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from gecoz_tpu.index.rankbv import slice_packed_bits
-from gecoz_tpu.index.shape import HSWTShape
+from gecoz_tpu_torch.index.rankbv import slice_packed_bits
+from gecoz_tpu_torch.index.shape import HSWTShape
 from gecoz_tpu_torch.ops.fmq import _pack_bits, _u32_as_i32
 
 _BIG = 1 << 30

@@ -1,8 +1,8 @@
 """Batched multi-pattern FM search on the card: thousands of queries at once.
 
 Port of gecoz_tpu/tools/batch_search.py::find_batched (26-81): all
-patterns are right-aligned into one matrix (`pack_patterns`, reused from
-gecoz_tpu), one `search_batch` per block resolves every row range on the
+patterns are right-aligned into one matrix (`pack_patterns`, a copy of the
+reference's), one `search_batch` per block resolves every row range on the
 card (kernel K1), one `locate_batch` resolves every hit row, and the
 per-sequence split follows GSSA.find:160-185 on the host.
 """
@@ -12,15 +12,25 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from gecoz_tpu.tools.batch_search import pack_patterns
-from gecoz_tpu.utils import metrics
 from gecoz_tpu_torch.ops import fmq
+from gecoz_tpu_torch.utils import metrics
 from gecoz_tpu_torch.utils.device import device as pick_device
 from gecoz_tpu_torch.utils.device import hbm_budget, sync
 
 # bytes per text character the locate table's build keeps in flight; past
 # the card's budget the fused-LF walk (kernel K2) locates instead
 LOCATE_TABLE_BYTES_PER_CHAR = 40
+
+
+def pack_patterns(patterns: list[bytes]) -> tuple[np.ndarray, np.ndarray]:
+    """Right-align patterns into a uint8 [B, L] matrix + lengths."""
+    L = max((len(p) for p in patterns), default=1)
+    arr = np.zeros((len(patterns), L), dtype=np.uint8)
+    lens = np.zeros(len(patterns), dtype=np.int32)
+    for i, p in enumerate(patterns):
+        arr[i, L - len(p):] = np.frombuffer(p, np.uint8)
+        lens[i] = len(p)
+    return arr, lens
 
 
 def search_tables(fm, dev: torch.device) -> fmq.DeviceFMBlock:

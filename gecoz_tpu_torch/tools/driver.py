@@ -2,13 +2,17 @@
 
 Port of gecoz_tpu/tools/driver.py: `index_fasta` (26-113), one block at a
 time; `decompress` (223-365), the reference's `--backend device` route;
-and the device branch of `gff_search` (421-466).  The block plan, FASTA
-reading and reflow, arena warm-up, phase metrics, `--resume` scan and GFF3
-rows are gecoz_tpu's own.  The reference's batched mesh route
-(driver.py:71-85 -> parallel/mesh.py) is multi-GPU work (ROADMAP A9), and
-the encode's host thread pool has no counterpart: the card encodes one
-block after another.  There is no host fallback: a failure on the card
-raises.
+and the device branch of `gff_search` (421-466).  The reference's batched
+mesh route (driver.py:71-85 -> parallel/mesh.py) is multi-GPU work
+(ROADMAP A9), and the encode's host thread pool has no counterpart: the
+card encodes one block after another.  There is no host fallback: a
+failure on the card raises.
+
+The host verbs, which the JAX package also runs on the host whatever its
+backend (driver.py:368-415, 489-511), are the port's copies of the
+reference's code: `extract_range`, `match` and `check` on the host
+FM-index (`FMIndex.find`/`extract`), with the `--resume` scan, the task
+runner and the GFF3 row writer they share with the card's verbs.
 """
 
 from __future__ import annotations
@@ -21,21 +25,79 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from gecoz_tpu.formats.fasta import (iter_fasta, read_sequence, record_size,
-                                     write_fasta_segment)
-from gecoz_tpu.formats.gcz import DEFAULT_SAMPLING_RATE, GecozReader
-from gecoz_tpu.tools.blocks import plan_blocks
-from gecoz_tpu.tools.driver import (DECODE_CHUNK, _COMPLEMENT, _gff_row,
-                                    _resume_prefix, _run_tasks)
-from gecoz_tpu.utils import metrics
-from gecoz_tpu.utils.hostmem import warm_for_block
-from gecoz_tpu_torch.formats.gcz import GecozWriter
-from gecoz_tpu_torch.ops import fmq
+from gecoz_tpu_torch.formats.fasta import (iter_fasta, read_sequence,
+                                           record_size, write_fasta_segment)
+from gecoz_tpu_torch.formats.gcz import (DEFAULT_SAMPLING_RATE, GecozReader,
+                                         GecozWriter)
+from gecoz_tpu_torch.ops import fmq, lfwalk
 from gecoz_tpu_torch.tools.batch_search import find_batched
+from gecoz_tpu_torch.tools.blocks import plan_blocks
+from gecoz_tpu_torch.utils import metrics
 from gecoz_tpu_torch.utils.device import device as pick_device
 from gecoz_tpu_torch.utils.device import sync
+from gecoz_tpu_torch.utils.hostmem import warm_for_block
 
 log = logging.getLogger("gecoz")
+
+
+def _resume_prefix(opath, xpath, blocks, sampling) -> int:
+    """Count complete leading blocks of an existing output pair matching
+    the plan; truncate both files to that prefix.  Returns the count."""
+    import os
+
+    from gecoz_tpu_torch.formats.gcz import (RefBlockHeader, SSA_HEADER_LEN,
+                                             default_gcx_path, index_size,
+                                             parse_ssa_header, header_hash)
+    opath = Path(opath)
+    gcx_path = Path(xpath) if xpath else default_gcx_path(opath)
+    if not opath.is_file() or not gcx_path.is_file():
+        return 0
+    ref = opath.read_bytes()
+    ssa = gcx_path.read_bytes()
+    sf = sampling.bit_length() - 1
+    pos = xpos = 0
+    good = 0
+    for block in blocks:
+        try:
+            h = RefBlockHeader.parse(ref, pos)
+        except (ValueError, IndexError):
+            break
+        expected_len = sum(s.length + 1 for s in block.sequences)
+        if h.headers != block.headers or h.len != expected_len \
+                or pos + h.size > len(ref):
+            break
+        xsize = SSA_HEADER_LEN + index_size(h.len, sf)
+        if xpos + xsize > len(ssa):
+            break
+        try:
+            blen, hsh = parse_ssa_header(ssa, xpos)
+        except ValueError:
+            break
+        if hsh != header_hash(h.headers) or blen != index_size(h.len, sf):
+            break
+        pos += h.size
+        xpos += xsize
+        good += 1
+    if good:
+        os.truncate(opath, pos)
+        os.truncate(gcx_path, xpos)
+    return good
+
+
+DECODE_CHUNK = 4 << 20      # bytes of text per decode task (GecoRead's 4 MiB)
+_COMPLEMENT = bytes.maketrans(b"ATCG", b"TAGC")
+
+
+def _run_tasks(tasks, threads: int) -> None:
+    if threads <= 1 or len(tasks) <= 1:
+        for fn, args in tasks:
+            fn(*args)
+        return
+    import concurrent.futures as cf
+    with cf.ThreadPoolExecutor(max_workers=threads) as pool:
+        futs = [pool.submit(fn, *args) for fn, args in tasks]
+        for f in futs:
+            f.result()
 
 
 def index_fasta(ipath, opath, xpath=None, sampling=DEFAULT_SAMPLING_RATE,
@@ -81,6 +143,11 @@ def decompress(ipath, opath, threads: int = 1,
     its region in DECODE_CHUNK pieces by `threads` host workers."""
     t0 = time.time()
     dev = pick_device(device)
+    if dev.type == "cuda":
+        # build (first use) and load the walk kernels in a phase of their
+        # own, not in the first block's decode.walk
+        with metrics.phase("decode.kernels"):
+            lfwalk._lib()
     reader = GecozReader(ipath)
     if reader.headers:
         warm_for_block(max(h.len for h in reader.headers))
@@ -195,3 +262,98 @@ def gff_search(ref_path, fasta_path, out=None,
                     for p in hits:
                         _gff_row(out, seq_headers[i], int(p), len(fwd),
                                  reverse, header)
+
+
+def _gff_row(out, target, pos, plen, reverse, qheader):
+    strand = "-" if reverse else "+"
+    parts = qheader.split("|")
+    attrs = f"ID={parts[0]}" if parts else ""
+    for extra in parts[1:]:
+        attrs += f";Note={extra}"
+    print(f"{target}\tgecotools\tdna\t{pos + 1}\t{pos + plen}\t1.000\t"
+          f"{strand}\t.\t{attrs}", file=out)
+
+
+def extract_range(ipath, header: str, start: int, end: int | None,
+                  opath) -> None:
+    """.gcz -> .seq range extraction (GecoRead.sequence)."""
+    reader = GecozReader(ipath)
+    bheader = reader.find_block(header)
+    if bheader is None:
+        raise SystemExit(f"no sequence found: {header}")
+    fm = reader.read(bheader)
+    nstr = bheader.headers.index(header)
+    data = fm.extract(nstr, start, end)
+    with open(opath, "wb") as f:
+        f.write(data)
+
+
+def match(ipath, header: str | None, pattern: str, show_positions: bool,
+          out=None) -> int:
+    """Count/search a pattern (GecoMatch.match)."""
+    out = sys.stdout if out is None else out
+    reader = GecozReader(ipath)
+    total = 0
+    blocks = reader.headers
+    if header is not None:
+        b = reader.find_block(header)
+        if b is None:
+            raise SystemExit(f"no sequence found: {header}")
+        blocks = [b]
+    for bheader in blocks:
+        fm = reader.read(bheader)
+        if not fm.has_index:
+            # count-only mode: no .gcx, so hits cannot be split/located
+            c = fm.count_total(pattern.encode())
+            if c:
+                print(f">{'|'.join(bheader.headers)} found : {c} "
+                      f"(no .gcx: block total, positions unavailable)",
+                      file=out)
+                total += c
+            continue
+        res = fm.find(pattern.encode())
+        for i, hits in sorted(res.items()):
+            if header is not None and bheader.headers[i] != header:
+                continue
+            print(f">{bheader.headers[i]} found : {len(hits)}", file=out)
+            total += len(hits)
+            if show_positions:
+                for p in hits:
+                    print(int(p), file=out)
+    log.info("total found: %d", total)
+    return total
+
+
+def check(ipath, deep: bool = False, out=None) -> bool:
+    """Validate a .gcz/.gcx pair: header chain, index sizes and hashes,
+    and (deep) a full decode of every block's wavelet tree.
+
+    The formats are self-describing block chains (GecozFileReader.java:
+    81-88 scans them the same way), so verification is streaming.
+    """
+    out = sys.stdout if out is None else out
+    try:
+        reader = GecozReader(ipath)
+    except (ValueError, IndexError) as ex:
+        print(f"CORRUPT: {ex}", file=out)
+        return False
+    ok = True
+    for bheader in reader.headers:
+        status = "ok"
+        try:
+            fm = reader.read(bheader)       # validates gcx hash + length
+            if not fm.has_index:
+                status = "ok (no .gcx)"
+            if deep:
+                text = fm.decode_text() if fm.has_index else None
+                if text is not None:
+                    counts = np.bincount(fm.bwt, minlength=256)
+                    if not np.array_equal(np.bincount(text, minlength=256),
+                                          counts):
+                        raise ValueError("decode histogram mismatch")
+        except Exception as ex:
+            status = f"CORRUPT: {ex}"
+            ok = False
+        print(f"block [{', '.join(bheader.headers)}] "
+              f"len={bheader.len}: {status}", file=out)
+    return ok

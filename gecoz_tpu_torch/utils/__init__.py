@@ -1,1 +1,1 @@
-"""Device selection."""
+"""Device selection, phase metrics, bit streams and host memory."""

@@ -3,7 +3,8 @@
 The port's `encode_block`, driver and CLI (plain versions on the CPU) must
 write exactly the bytes gecoz_tpu writes with its device and host
 backends; the files must decompress through gecoz_tpu; and the port must
-import and encode with JAX blocked, as on the card's machine.
+import and encode with JAX and gecoz_tpu blocked, as on the card's
+machine.
 """
 
 import os
@@ -146,7 +147,7 @@ _BLOCKED = textwrap.dedent("""
 
     class NoJax:
         def find_spec(self, name, path=None, target=None):
-            if name.split(".")[0] in ("jax", "jaxlib"):
+            if name.split(".")[0] in ("jax", "jaxlib", "gecoz_tpu"):
                 raise ImportError("blocked: " + name)
 
     sys.meta_path.insert(0, NoJax())
@@ -160,7 +161,8 @@ _BLOCKED = textwrap.dedent("""
             f.write(f">s{i}\\n{seq}\\n")
     rc = cli.main(["-i", sys.argv[1], "-o", sys.argv[2], "--device", "cpu"])
     assert rc == 0, rc
-    assert not [m for m in sys.modules if m.split(".")[0] == "jax"]
+    assert not [m for m in sys.modules
+                if m.split(".")[0] in ("jax", "gecoz_tpu")]
     print("ENCODED")
 """)
 

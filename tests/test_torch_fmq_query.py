@@ -25,6 +25,7 @@ from gecoz_tpu_torch.tools import driver
 
 from conftest import random_block
 from test_fm import build_fm
+from test_torch_host_copies import build_port_fm
 
 torch.set_num_threads(1)
 
@@ -33,7 +34,7 @@ def make_pair(rng, nseq=3, rate=8, **kw):
     data, seqs = random_block(rng, nseq=nseq, **kw)
     fm = build_fm(data, rate)
     return (data, seqs, fm, ref_fmq.device_block_from_fm(fm),
-            fmq.device_block_from_fm(fm, "cpu"))
+            fmq.device_block_from_fm(build_port_fm(data, rate), "cpu"))
 
 
 def carried(ref_block) -> fmq.DeviceFMBlock:
@@ -186,7 +187,8 @@ def test_kmer_table_tiny_block():
     data = np.frombuffer(b"ACGTACGTAC\0", np.uint8)
     fm = build_fm(data, 4)
     ref = ref_fmq.with_kmer_table(ref_fmq.device_block_from_fm(fm))
-    port = fmq.with_kmer_table(fmq.device_block_from_fm(fm, "cpu"))
+    port = fmq.with_kmer_table(fmq.device_block_from_fm(
+        build_port_fm(data, 4), "cpu"))
     pats = [b"ACGT", b"GTAC", b"\0"]
     sp, ep = _search_both(ref, port, pats)
     for i, p in enumerate(pats):
@@ -256,10 +258,10 @@ def test_decode_without_tables_and_edge_sizes(rng):
              np.frombuffer(b"AC\0", np.uint8),                  # n < rate
              np.frombuffer(b"ACGTACGT\0", np.uint8)]            # tail 0
     for data in cases:
-        fm = build_fm(data, 4)
-        port = fmq.device_block_from_fm(fm, "cpu")
+        fm, pfm = build_fm(data, 4), build_port_fm(data, 4)
+        port = fmq.device_block_from_fm(pfm, "cpu")
         assert bytes(fmq.decode_text(port).numpy()) == bytes(data)
-        got = driver._device_decode(fm, torch.device("cpu"))
+        got = driver._device_decode(pfm, torch.device("cpu"))
         assert bytes(got) == bytes(data)
         assert bytes(ref_fmq.decode_text_device(fm)) == bytes(data)
 

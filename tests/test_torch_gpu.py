@@ -7,18 +7,19 @@ machine); there `tests/conftest.py`, which imports JAX, is left out:
     python -m pytest --noconftest -p no:cacheprovider -m gpu \
         tests/test_torch_gpu.py
 
-The oracles are the port's plain versions and gecoz_tpu's host tier.
+The oracles are the port's plain versions and its host tier (the copies
+of gecoz_tpu's host modules, held equal to them on the CPU by
+tests/test_torch_host_copies.py).
 """
 
 import numpy as np
 import pytest
 import torch
 
-import gecoz_tpu_torch  # noqa: F401 - keeps gecoz_tpu from importing JAX
-from gecoz_tpu.ops.sa import bwt_from_sa, suffix_array_numpy
 from gecoz_tpu_torch.ops import fmq, fmsearch, lfwalk, scan
 from gecoz_tpu_torch.ops.fmq import block_to_numpy
 from gecoz_tpu_torch.ops.pipeline import index_block
+from gecoz_tpu_torch.ops.sa import bwt_from_sa, suffix_array_numpy
 from gecoz_tpu_torch.ops.sa_device import suffix_array_device
 
 pytestmark = pytest.mark.gpu
@@ -94,10 +95,9 @@ def test_index_block_card_equals_cpu(cuda, gen):
 
 
 def test_encode_on_card_equals_host_tier(cuda, gen, tmp_path):
-    from gecoz_tpu.formats.gcz import encode_block as host_encode
-    from gecoz_tpu_torch.formats.gcz import encode_block
+    from gecoz_tpu_torch.formats.gcz import encode_block, encode_block_host
     s = _genomic(gen)
-    want = host_encode(s, ["a", "b"], backend="native")
+    want = encode_block_host(s, ["a", "b"], backend="native")
     scan.reset_launches()
     assert encode_block(s, ["a", "b"], device=cuda) == want
     for name in ("cumsum_i32", "fill_rev_i32", "fill_fwd_i32"):
@@ -192,10 +192,100 @@ def test_lf_walk_kernels_match_plain(cuda, gen, monkeypatch, sf, packed):
     assert np.array_equal(got.cpu().numpy(), sa[rows.cpu().numpy()])
 
 
+@pytest.mark.parametrize("sf", [2, 3, 4, 5, 6, 7])
+def test_lf_decode_tiles_at_every_width(cuda, gen, sf):
+    """The staged lfk kernel and the first design (v1) against the plain
+    version: W = 1, W below one warp, W not a multiple of a warp tile, and
+    rates from 4 (chunks shorter than a 16-byte store) past 32 (chunks of
+    whole sectors)."""
+    s, blk = _card_block(cuda, gen, sf)
+    blk = fmq.with_lf_table(blk)
+    rate, mode = 1 << sf, f"lfk{blk.lfk_k}"
+    if rate % blk.lfk_k:
+        pytest.skip(f"rate {rate} has no lfk table")
+    cmap = fmq.code_map(blk)
+    for W in (1, 5, 31, 32, 33, 97, 255, 4097):
+        seeds = torch.from_numpy(gen.integers(0, blk.n, W).astype(
+            np.int32)).to(cuda)
+        want = lfwalk.decode_walks_ref(blk.lfk_tab, seeds, rate, mode,
+                                       code_map=cmap)
+        old = lfwalk._decode_launch(blk.lfk_tab, seeds, rate, mode, None,
+                                    cmap, v1=True)
+        assert torch.equal(old, want), W
+        assert torch.equal(lfwalk.decode_walks(blk.lfk_tab, seeds, rate,
+                                               mode, code_map=cmap), want)
+
+
+def test_lf_decode_refuses_a_misaligned_table(cuda, gen):
+    """An lfk16 table viewed from its second row starts 4 bytes off an
+    8-byte boundary: the wrapper raises before the kernel's 8-byte loads
+    could fault, and the card goes on working."""
+    s, blk = _card_block(cuda, gen, 4)
+    blk = fmq.with_lf_table(blk)
+    assert blk.lfk_k == 16
+    seeds = torch.zeros(64, dtype=torch.int32, device=cuda)
+    cmap = fmq.code_map(blk)
+    before = lfwalk.LAUNCHES["decode"]
+    with pytest.raises(ValueError, match="aligned"):
+        lfwalk.decode_walks(blk.lfk_tab[1:], seeds, 16, "lfk16",
+                            code_map=cmap)
+    assert lfwalk.LAUNCHES["decode"] == before
+    got = lfwalk.decode_walks(blk.lfk_tab, seeds, 16, "lfk16", code_map=cmap)
+    torch.cuda.synchronize()
+    assert torch.equal(got, lfwalk.decode_walks_ref(blk.lfk_tab, seeds, 16,
+                                                    "lfk16", code_map=cmap))
+
+
+def _marked_table(gen, n, sf, p_mark):
+    """A synthetic fused LF table: random next rows, a `p_mark` share of
+    rows sampled (bit 31), the mark plane and ssa_perm to match.  Walks
+    that meet no mark within rate + 1 reads give -1."""
+    nxt = gen.integers(0, n, n).astype(np.uint32)
+    mark = gen.random(n) < p_mark
+    tab = (nxt | (mark.astype(np.uint32) << 31)).view(np.int32)
+    words = np.zeros((n + 31) // 32, np.uint32)
+    np.bitwise_or.at(words, np.flatnonzero(mark) >> 5,
+                     (1 << (np.flatnonzero(mark) & 31)).astype(np.uint32))
+    pre = np.concatenate([[0], np.cumsum([bin(w).count("1") for w in words])
+                          [:-1]]).astype(np.int32)
+    perm = gen.permutation(max(int(mark.sum()), 1)).astype(np.int32)
+    return [torch.from_numpy(a) for a in (tab, words.view(np.int32), pre,
+                                          perm)], mark
+
+
+@pytest.mark.parametrize("p_mark", [0.05, 0.3, 1.0])
+def test_lf_locate_matches_plain_at_the_limits(cuda, gen, p_mark):
+    """Locate walks against the plain version: rows already sampled (0
+    steps), walks that reach the rate + 1 limit (-1), B = 1, below and past
+    one warp."""
+    sf, n = 3, 20000
+    (tab, words, pre, perm), mark = _marked_table(gen, n, sf, p_mark)
+    tab, words, pre, perm = (t.to(cuda) for t in (tab, words, pre, perm))
+    for B in (1, 7, 32, 33, 1000, 70001):
+        rows = torch.from_numpy(gen.integers(0, n, B).astype(
+            np.int32)).to(cuda)
+        args = (tab, rows, words, pre, perm, sf, False)
+        want = lfwalk.locate_walks_ref(*args)
+        if B == 70001:
+            if p_mark < 1.0:
+                assert bool((want == -1).any())
+            sampled = torch.from_numpy(mark).to(cuda)[rows.long()]
+            assert bool(sampled.any())
+        before = lfwalk.LAUNCHES["locate"]
+        assert torch.equal(lfwalk.locate_walks(*args), want), B
+        assert lfwalk.LAUNCHES["locate"] == before + 1
+
+
+def test_lf_kernels_load_before_the_first_launch(cuda):
+    lfwalk._lib()
+    assert lfwalk.INIT_SECONDS is not None
+
+
 def test_decompress_and_search_on_card_equal_host_tier(cuda, gen, tmp_path):
     import io
 
-    from gecoz_tpu.tools import driver as host_driver
+    from gecoz_tpu_torch.formats.fasta import format_fasta_record, iter_fasta
+    from gecoz_tpu_torch.formats.gcz import GecozReader
     from gecoz_tpu_torch.tools import driver
     seqs = [gen.choice(np.frombuffer(b"ACGTN", np.uint8), size=n)
             for n in (70000, 3000, 51)]
@@ -212,12 +302,29 @@ def test_decompress_and_search_on_card_equal_host_tier(cuda, gen, tmp_path):
             f.write(b">q%d\n" % i + seqs[0][a:a + 20 + i].tobytes() + b"\n")
     fmsearch.reset_launches()
     lfwalk.reset_launches()
-    port, host = tmp_path / "port.fa", tmp_path / "host.fa"
+    # the host oracles: the FM-index's own decode and find, block by block
+    reader = GecozReader(gcz)
+    fms = [(bh.headers, reader.read(bh)) for bh in reader.headers]
+    want = []
+    for headers, fm in fms:
+        text = fm.decode_text()
+        for i, h in enumerate(headers):
+            b, t = fm.seq_bounds(i)
+            want.append(format_fasta_record(h, text[b:t]))
+    port = tmp_path / "port.fa"
     driver.decompress(gcz, port, device=cuda)
-    host_driver.decompress(gcz, host, backend="numpy")
-    assert port.read_bytes() == host.read_bytes()
-    a, b = io.StringIO(), io.StringIO()
+    assert port.read_bytes() == b"".join(want)
+    b = io.StringIO()
+    for q in iter_fasta(qf):
+        fwd = bytes(q.data)
+        for pat, reverse in ((fwd, False),
+                             (fwd[::-1].translate(driver._COMPLEMENT), True)):
+            for headers, fm in fms:
+                for i, hits in sorted(fm.find(pat).items()):
+                    for p in hits:
+                        driver._gff_row(b, headers[i], int(p), len(fwd),
+                                        reverse, q.header)
+    a = io.StringIO()
     driver.gff_search(gcz, qf, out=a, device=cuda)
-    host_driver.gff_search(gcz, qf, out=b, backend="numpy")
     assert a.getvalue() == b.getvalue() != ""
     assert fmsearch.LAUNCHES["fm_search"] > 0 and lfwalk.LAUNCHES["decode"] > 0

@@ -22,6 +22,7 @@ from gecoz_tpu_torch.ops import fmq, lfwalk
 
 from conftest import random_block
 from test_fm import build_fm
+from test_torch_host_copies import build_port_fm
 
 torch.set_num_threads(1)
 
@@ -57,7 +58,8 @@ def _block(rng, rate, packed, monkeypatch):
     data, _ = random_block(rng, nseq=2, minlen=200, maxlen=500,
                            alphabet=b"ACGTN")
     fm = build_fm(data, rate)
-    return data, fm, fmq.with_lf_table(fmq.device_block_from_fm(fm, "cpu"))
+    return data, fm, fmq.with_lf_table(
+        fmq.device_block_from_fm(build_port_fm(data, rate), "cpu"))
 
 
 @pytest.mark.parametrize("rate,mode,packed", [
@@ -179,3 +181,24 @@ def test_wrapper_checks(rng, monkeypatch):
         lfwalk.locate_walks(blk.lf_tab, torch.tensor([blk.n], dtype=torch.int32),
                             blk.mark_words, blk.mark_pre, blk.ssa_perm,
                             blk.sf, True)
+
+
+@pytest.mark.parametrize("case", ["lfk16 second row", "lfk8 word offset",
+                                  "lfk16 rate 48"])
+def test_decode_refuses_what_the_kernel_cannot_walk(case, rng, monkeypatch):
+    """The lfk kernel reads rows in 8-byte loads and stages min(rate, 32)
+    bytes a walk: a table off an 8-byte boundary, or a rate past 32 that
+    is no multiple of 32, is refused on every device."""
+    rate = 48 if case.endswith("48") else 16
+    _, _, blk = _block(rng, 16, True, monkeypatch)
+    cmap = fmq.code_map(blk)
+    seeds = torch.zeros(3, dtype=torch.int32)
+    tab, mode = blk.lfk_tab, "lfk16"
+    if case == "lfk16 second row":
+        tab = blk.lfk_tab[1:]                    # 12 bytes in
+    elif case == "lfk8 word offset":
+        tab, mode = torch.zeros(2 * 64 + 1, dtype=torch.int32)[1:].view(
+            64, 2), "lfk8"
+    assert tab.is_contiguous()
+    with pytest.raises(ValueError):
+        lfwalk.decode_walks(tab, seeds, rate, mode, code_map=cmap)

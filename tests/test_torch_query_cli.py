@@ -16,14 +16,15 @@ pytest.importorskip("jax")
 
 from gecoz_tpu.cli import main as ref_cli
 from gecoz_tpu.formats.fasta import format_fasta_record
-from gecoz_tpu.formats.gcz import GecozReader
 from gecoz_tpu.tools import driver as ref_driver
 from gecoz_tpu_torch import cli
+from gecoz_tpu_torch.formats.gcz import GecozReader
 from gecoz_tpu_torch.tools import batch_search
 from gecoz_tpu_torch.tools import driver
 
 from conftest import random_block, random_dna
 from test_fm import build_fm
+from test_torch_host_copies import build_port_fm
 from test_gcz_files import write_fasta
 
 torch.set_num_threads(1)
@@ -136,13 +137,14 @@ def test_find_batched_matches_host(rng, monkeypatch, budget):
     pats = [bytes(rng.choice(np.frombuffer(b"ACGT", np.uint8), size=n))
             for n in (2, 4, 7, 11) for _ in range(6)]
     pats.append(b"X")  # absent symbol
-    results = batch_search.find_batched(fm, pats, "cpu")
+    pfm = build_port_fm(data, rate=8)
+    results = batch_search.find_batched(pfm, pats, "cpu")
     for p, res in zip(pats, results):
         want = fm.find(p)
         assert set(res) == set(want), p
         for k in want:
             assert np.array_equal(res[k], want[k]), (p, k)
-    assert batch_search.find_batched(fm, [], "cpu") == []
+    assert batch_search.find_batched(pfm, [], "cpu") == []
 
 
 def test_decompress_raises_without_index(tmp_path, genome):

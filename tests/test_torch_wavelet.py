@@ -15,6 +15,8 @@ import jax.numpy as jnp
 from gecoz_tpu.index.hswt import HSWT
 from gecoz_tpu.index.shape import HSWTShape
 from gecoz_tpu.ops import wavelet as ref
+from gecoz_tpu_torch.index.hswt import HSWT as PortHSWT
+from gecoz_tpu_torch.index.shape import HSWTShape as PortShape
 from gecoz_tpu_torch.ops import wavelet as port
 
 from conftest import random_block
@@ -46,7 +48,8 @@ def test_level_words_match_reference(rng):
                                        torch.from_numpy(codes),
                                        torch.from_numpy(lens), maxlen)
         assert np.array_equal(got.numpy().view(np.uint32), want)
-        assert port._level_bit_counts(shape, maxlen) == \
+        pshape = PortShape.from_counts(np.bincount(data, minlength=256))
+        assert port._level_bit_counts(pshape, maxlen) == \
             ref._level_bit_counts(shape, maxlen)
 
 
@@ -55,9 +58,11 @@ def test_node_bits_match_reference_and_host(rng):
         shape = HSWTShape.from_counts(np.bincount(data, minlength=256))
         host = HSWT.build(data, shape)      # data taken as a BWT directly
         dev = ref.build_hswt_device(data, shape)
-        got = port.build_hswt_device(torch.from_numpy(data.copy()), shape)
+        pshape = PortShape.from_counts(np.bincount(data, minlength=256))
+        got = port.build_hswt_device(torch.from_numpy(data.copy()), pshape)
         assert got.keys() == dev.keys()
         for key in shape.nodes:
             assert np.array_equal(got[key], dev[key]), key
             assert np.array_equal(got[key], host.nodes[key].data), key
-        assert HSWT.from_packed(shape, got).serialize() == host.serialize()
+        assert PortHSWT.from_packed(pshape, got).serialize() == \
+            host.serialize()
