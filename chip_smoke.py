@@ -9,11 +9,13 @@ Phases (any mismatch or exception exits non-zero):
 1. environment and build: the card's name and power limit, the three CUDA
    kernels (scan, fm_search, lf_walk) built from gecoz_tpu_torch/csrc, one
    nvcc each, and the host library (g++, csrc/host), all started together
-   (time, -Xptxas -v); the lf_walk kernels' load time;
+   (time, -Xptxas -v); each kernel library's load time;
 2. every scan entry point against its plain PyTorch version, bit-exact, at
-   the sizes the path uses, then both timed with CUDA events, and beside
-   them the one PyTorch call that computes the same function where there
-   is one (torch.cumsum in int32, torch.cummax);
+   the sizes the path uses and at the one-pass scan's tile edges (and on
+   views 4 and 12 bytes off a 16-byte boundary), then both timed with CUDA
+   events, and beside them the one PyTorch call that computes the same
+   function where there is one (torch.cumsum in int32, torch.cummax); the
+   tile-shape sweep of the add and the look-back scratch's bytes;
 3. the run-aware suffix sort (sort and scatter strategies, with and
    without the run-key table) against the host library's C++ SA-IS;
 4. the query-state build (`index_block`) against the port's plain path on
@@ -37,7 +39,11 @@ Phases (any mismatch or exception exits non-zero):
    design (v1); packed rows at the probe's 2048 walks x 32 steps over a 2 Mi block) and locate
    walks (2^20 rows), both beside the card's random-read rate (a library
    gather of random rows); K1's search (2^20 16-mers, 20,000 reads of
-   16-150 bases on both strands); each beside its bytes bound;
+   16-150 bases on both strands) on the rank table (`with_rank_blocks`,
+   timed), beside its first design (the flat planes), with the distinct
+   32-byte sectors each search reads in both layouts (a plain replay of
+   the search) and the random-read bound those sectors give at the card's
+   rate for random 32-byte rows; each beside its bytes bound;
 9. GFF3 search of 1,000 reads through the port's CLI, byte for byte
    against the host FM-index (`FMIndex.find` per read and strand, rows
    written by the GFF3 row writer), at the default memory budget (locate
@@ -214,9 +220,11 @@ def phase_build(build):
           f"{native.error()}")
     print(f"# host library loaded: {build.BUILDS['gecoz_host'].path.name} "
           "(SA-IS, BWT, rank vectors, LF walks, wavelet fill)")
-    print(f"# lf_walk kernels loaded in {lfwalk.INIT_SECONDS * 1e3:.1f} ms "
-          "(the library's CUDA runtime set up, every kernel's attributes "
-          "read), before any launch")
+    for name, mod in (("scan", scan), ("fm_search", fmsearch),
+                      ("lf_walk", lfwalk)):
+        print(f"# {name} kernels loaded in {mod.INIT_SECONDS * 1e3:.1f} ms "
+              "(the library's CUDA runtime set up, every path kernel's "
+              "attributes read), before any launch")
 
 
 def scan_inputs(rng, n, dev):
@@ -240,18 +248,28 @@ def phase_kernels(scan, dev):
     rng = np.random.default_rng(0)
     err = {k: 0 for k in KERNELS}
     times, lib_times = {}, {}
-    for n in SCAN_SIZES:
-        full, fill = scan_inputs(rng, n, dev)
-        for name in KERNELS:
-            x = fill if name.startswith("fill") else full
-            got = getattr(scan, name)(x)
-            want = getattr(scan, name + "_ref")(x)
-            torch.cuda.synchronize()
-            e = int((got.long() - want.long()).abs().max())
-            err[name] = max(err[name], e)
-            check(torch.equal(got, want), f"{name} n={n} differs from plain "
-                  f"(max abs err {e})")
-        print(f"# scan n={n}: 5 entry points bit-exact against plain")
+    T = scan._lib().gecoz_scan_tile()
+    # the one-pass scan's tile edges: a look-back past one warp's window of
+    # 32 tiles and through 40 windows
+    edges = (T - 1, T, T + 1, 2 * T + 7, 33 * T + 1, 40 * 32 * T + 5)
+    for n in sorted(set(SCAN_SIZES + edges)):
+        full, fill = scan_inputs(rng, n + 3, dev)
+        # views 0, 4 and 12 bytes past a 16-byte boundary (the head and tail
+        # of every tile take the scalar path); offset views at the last edge
+        for off in (0, 1, 3) if n == edges[-1] else (0,):
+            for name in KERNELS:
+                x = (fill if name.startswith("fill") else full)[off:off + n]
+                got = getattr(scan, name)(x)
+                want = getattr(scan, name + "_ref")(x)
+                torch.cuda.synchronize()
+                e = int((got.long() - want.long()).abs().max())
+                err[name] = max(err[name], e)
+                check(torch.equal(got, want), f"{name} n={n} view +{off} "
+                      f"differs from plain (max abs err {e})")
+        full, fill = full[:n], fill[:n]
+        print(f"# scan n={n}{' (tile edge)' if n in edges else ''}: 5 entry "
+              "points bit-exact against plain"
+              + (" at views +0, +4 and +12 bytes" if n == edges[-1] else ""))
         if n in TIMED_SIZES or n - 12345 in TIMED_SIZES:
             reps = 200 if n < 16 * MiB else 30
             for name in KERNELS:
@@ -276,8 +294,27 @@ def phase_kernels(scan, dev):
                           f"{(lt[0] + lt[2]) / 2:.4f} ms, kernel {lt[1]:.4f} "
                           f"ms (turns library/kernel/library {lt[0]:.4f} "
                           f"{lt[1]:.4f} {lt[2]:.4f}); same result: {same}")
+        if n == 64 * MiB + 12345:
+            scan_sweep(scan, full, n)
         del full, fill
     return err, times, lib_times
+
+
+def scan_sweep(scan, x, n):
+    """The add at three tile shapes and occupancies (the path's first), and
+    the look-back scratch the path's shape needs."""
+    lib = scan._lib()
+    design_sweep(f"cumsum_i32 n={n}", {
+        f"{label} ({lib.gecoz_scan_sweep_tile(i)} a tile)":
+            (lambda i=i: scan._sweep_launch(x, i))
+        for i, label in enumerate((
+            "256 threads x 32, 5 blocks an SM", "256 threads x 32, 4 blocks "
+            "an SM", "256 threads x 16, 6 blocks an SM"))},
+        scan.cumsum_i32_ref(x), 30, 8 * n)
+    tiles = -(-n // lib.gecoz_scan_tile())         # out starts aligned
+    print(f"# scan scratch at n={n}: {tiles} tiles, {8 * (tiles + 1)} bytes "
+          f"zeroed (torch.zeros, one memset) = {8 * (tiles + 1) / (8 * n):.2%}"
+          " of the scan's bytes")
 
 
 def times_key(name, n):
@@ -408,8 +445,7 @@ def phase_query_state(dev):
     return out
 
 
-def profile_busy(fn, what: str,
-                 ours=("tile_reduce", "agg_scan", "tile_scan")) -> None:
+def profile_busy(fn, what: str, ours=("scan_onepass",)) -> None:
     """Device kernel time by kernel name under torch.profiler, and its sum
     against the wall time of the same (profiled) run; `ours` names the
     hand-written kernels to total apart."""
@@ -643,7 +679,7 @@ def phase_end_to_end(dev, workdir):
                                                   dev),
                  f"decompress of the {big.len / MiB:.1f} MiB block (host BWT "
                  "decode, lift, tables, walks, fetch and reflow)",
-                 ours=("lf_decode", "tile_reduce", "agg_scan", "tile_scan"))
+                 ours=("lf_decode", "scan_onepass"))
     del fm
     return launches, dlaunches
 
@@ -730,7 +766,7 @@ def phase_query_kernels(dev):
     from gecoz_tpu_torch.ops.pipeline import index_block
     from gecoz_tpu_torch.tools.batch_search import pack_patterns
     from bench import synth_dna
-    err, times, bounds = {}, {}, {}
+    err, times, bounds, rr_bounds = {}, {}, {}, {}
     rng = np.random.default_rng(23)
 
     n = 64 * MiB
@@ -811,6 +847,21 @@ def phase_query_kernels(dev):
               f"{t[0].numel() * 4}-byte rows of a {t.numel() * 4 >> 20} MiB "
               f"table: {ms:.4f} ms = {count / ms / 1e6:.2f} G rows/s")
         return count / ms
+
+    def sector_gather(t, count):
+        """Random rows of a 2-D table with one 4-byte word read in each: a
+        random row costs its whole sector whatever is read of it, and a 2-D
+        torch.index_select of 32-byte rows measures the library's gather
+        (far slower than rows of 4 or 12 bytes), not the card."""
+        idx = torch.randint(0, t.shape[0], (count,), device=dev,
+                            generator=torch.Generator(dev).manual_seed(5))
+        flat, first = t.view(-1), idx * t.shape[1]
+        ms = cuda_ms(lambda: torch.index_select(flat, 0, first), 10)
+        print(f"# random reads: torch.index_select of the first word of "
+              f"{count} random {t[0].numel() * 4}-byte rows of a "
+              f"{t.numel() * 4 >> 20} MiB table: {ms:.4f} ms = "
+              f"{count / ms / 1e6:.2f} G rows/s")
+        return count / ms
     per_ms4 = gather(blk.lf_tab, 1 << 24)
     per_ms12 = gather(blk.lfk_tab, 1 << 22)
     dec_ms = times["lf_walk.decode lfk16 64 MiB"][0]
@@ -822,19 +873,57 @@ def phase_query_kernels(dev):
     k_blk = fmq.with_kmer_table(blk)
     print(f"# k-mer table: k {k_blk.kmer_k}, {k_blk.kmer_bits} bits, "
           f"{k_blk.kmer_tab.shape[0]} rows")
+    k_blk, secs = wall(lambda: fmq.with_rank_blocks(k_blk))
+    rb_bytes = k_blk.rank_blocks.numel() * 4
+    flat_bytes = (k_blk.plane_words.numel() + k_blk.plane_pres.numel()) * 4
+    print(f"# rank table (with_rank_blocks): {secs * 1e3:.1f} ms, "
+          f"{k_blk.rank_blocks.shape[0]} blocks of 32 bytes = "
+          f"{rb_bytes / MiB:.1f} MiB = {rb_bytes / n:.3f} B/char (flat planes "
+          f"{flat_bytes / n:.3f} B/char)")
+    gather(k_blk.rank_blocks, 1 << 22)
+    per_ms32 = sector_gather(k_blk.rank_blocks, 1 << 22)
+
+    def k1_shape(key, pats, lens, reps, nbytes):
+        """K1 at one shape: bit-exact, timed in turns with its plain
+        version, beside its first design, its sectors and its bounds."""
+        got = timed_pair("fm_search",
+                         lambda: fmsearch.backward_search(k_blk, pats, lens),
+                         lambda: fmsearch.backward_search_ref(k_blk, pats,
+                                                              lens),
+                         reps, err, times, key)
+        both = torch.cat(got)
+
+        def launch(v1):
+            return lambda: torch.cat(fmsearch._search_launch(
+                k_blk, pats, lens, v1))
+        design_sweep(key, {"first design (flat planes, a pattern byte a "
+                           "step)": launch(True),
+                           "rank blocks (one 32-byte block a lookup, "
+                           "16-byte pattern loads)": launch(False)},
+                     both, reps, nbytes)
+        (flat, blocks), (uflat, ublocks) = search_sectors(k_blk, pats, lens)
+        B = pats.shape[0]
+        bounds[key] = nbytes
+        rr_bounds[key] = blocks / per_ms32
+        print(f"# sectors {key}: {flat / B:.2f} distinct 32-byte sectors a "
+              f"pattern on the flat planes, {blocks / B:.2f} on the rank "
+              f"blocks (occ lookups; the k-mer seed's one read excluded); "
+              f"at {per_ms32 / 1e6:.2f} G random 32-byte rows/s: "
+              f"{blocks / per_ms32:.4f} ms random-read bound "
+              f"({flat / per_ms32:.4f} ms for the flat sectors; kernel "
+              f"{times[key][0]:.4f} ms); distinct over the whole batch: "
+              f"{uflat} flat, {ublocks} rank-block sectors "
+              f"({ublocks / per_ms32:.4f} ms at that rate)")
+        return got
+
     L, B = 16, 1 << 20
     starts = np.random.default_rng(3).integers(0, n - L, size=B)
     pats = torch.from_numpy(s[starts[:, None] + np.arange(L)]).to(dev)
     lens = torch.full((B,), L, dtype=torch.int32, device=dev)
-    sp, ep = timed_pair("fm_search",
-                        lambda: fmsearch.backward_search(k_blk, pats, lens),
-                        lambda: fmsearch.backward_search_ref(k_blk, pats,
-                                                             lens),
-                        10, err, times, "fm_search 2^20 16-mers")
     # a pattern in, its 8-byte k-mer seed, then L - k steps of two occ
     # lookups (an 8-byte word and prefix each), sp and ep out
-    bounds["fm_search 2^20 16-mers"] = B * (L + 4 + 8 + 8
-                                            + 16 * (L - k_blk.kmer_k))
+    sp, ep = k1_shape("fm_search 2^20 16-mers", pats, lens, 10,
+                      B * (L + 4 + 8 + 8 + 16 * (L - k_blk.kmer_k)))
     # every 16-mer drawn from the text occurs (those across a separator
     # excepted: backward search steps through '\0' uncorrected)
     whole = (pats != 0).all(1)
@@ -851,16 +940,11 @@ def phase_query_kernels(dev):
     arr, ln = pack_patterns(reads)
     pats, lens = (torch.from_numpy(arr).to(dev),
                   torch.from_numpy(ln).to(dev))
-    sp, ep = timed_pair("fm_search",
-                        lambda: fmsearch.backward_search(k_blk, pats, lens),
-                        lambda: fmsearch.backward_search_ref(k_blk, pats,
-                                                             lens),
-                        5, err, times, "fm_search 20,000 reads x 2 strands")
     # every step counted: a reverse strand absent from the text stops
     # early, so this bound is an upper one
     steps = np.maximum(ln.astype(np.int64) - k_blk.kmer_k, 0)
-    bounds["fm_search 20,000 reads x 2 strands"] = int(
-        (ln.astype(np.int64) + 4 + 8 + 8 + 16 * steps).sum())
+    sp, ep = k1_shape("fm_search 20,000 reads x 2 strands", pats, lens, 5,
+                      int((ln.astype(np.int64) + 20 + 16 * steps).sum()))
     whole = (pats[0::2] != 0).all(1)
     check(bool((ep[0::2] >= sp[0::2])[whole].all()), "a read drawn from the "
           "block was not found")
@@ -888,7 +972,62 @@ def phase_query_kernels(dev):
         print(f"# bound {key}:{most} {bound_ms(nbytes):.4f} ms for {nbytes} "
               f"bytes (kernel {ms:.4f} ms = {100 * bound_ms(nbytes) / ms:.1f}"
               f"% of it; plain {plain:.4f} ms)")
-    return err, times, bounds
+    for key, ms_bound in rr_bounds.items():
+        print(f"# random-read bound {key}: {ms_bound:.4f} ms (kernel "
+              f"{times[key][0]:.4f} ms = {100 * ms_bound / times[key][0]:.1f}"
+              "% of it)")
+    return err, times, bounds, rr_bounds
+
+
+def search_sectors(blk, pats, lens):
+    """Distinct 32-byte sectors the searches' occ lookups read, in the two
+    layouts: the flat planes (a word and its prefix, one sector in each of
+    two arrays) and the rank blocks (one block).  Returns ((flat, blocks)
+    summed over the patterns of each pattern's distinct sectors, (flat,
+    blocks) distinct over the whole batch).  A plain replay of the search on
+    the card: the seed from the plain version on the last k columns, then
+    every live step's (sp, ep) recorded, as the kernel runs it."""
+    import torch
+    from gecoz_tpu_torch.ops import fmsearch
+    B, L = pats.shape
+    k = fmsearch._seed_k(blk, L)
+    if k:
+        sp, ep = fmsearch.backward_search_ref(
+            blk, pats[:, L - k:].contiguous(), lens.clamp(max=k))
+        start = L - k
+    else:
+        last = pats[:, L - 1].long()
+        sp, ep = blk.c[last], blk.c[last + 1] - 1
+        start = L - 1
+    wb = -(-blk.n // fmsearch.BLOCK_CHARS)
+    flat, blocks = [], []
+    for col in range(start - 1, -1, -1):
+        ch = pats[:, col].long()
+        row = blk.sym_plane[ch].long()
+        live = (col >= L - lens) & (sp <= ep) & (row >= 0)
+        for pos in (sp - 1, ep):
+            use = live & (pos >= 0)
+            p = pos.clamp(min=0).long()
+            flat.append(torch.where(use, (row * blk.W + (p >> 5)) >> 3, -1))
+            blk_id = row * wb + p // fmsearch.BLOCK_CHARS
+            blocks.append(torch.where(use, blk_id, -1))
+        cs = blk.c[ch]
+        act = (col >= L - lens) & (sp <= ep)
+        nsp = cs + fmsearch.occ_inclusive(blk, ch, sp - 1)
+        nep = cs + fmsearch.occ_inclusive(blk, ch, ep) - 1
+        sp, ep = torch.where(act, nsp, sp), torch.where(act, nep, ep)
+
+    def distinct(ids):
+        if not ids:
+            return 0, 0
+        v = torch.stack(ids, 1).sort(1).values
+        new = (v[:, 1:] != v[:, :-1]) & (v[:, 1:] >= 0)
+        every = torch.unique(v)
+        return (int(new.sum() + (v[:, 0] >= 0).sum()),
+                int((every >= 0).sum()))
+    # the flat layout reads the same sector index in both arrays
+    (f, uf), (b, ub) = distinct(flat), distinct(blocks)
+    return (2 * f, b), (2 * uf, ub)
 
 
 def make_queries(rng, path, count=1000):
@@ -1045,8 +1184,7 @@ def phase_search(dev, workdir, port_gcz):
     profile_busy(lambda: find_batched(fm, pats, dev),
                  f"GFF3 search of the {big.len / MiB:.1f} MiB block (host BWT "
                  "decode, lift, k-mer and locate tables, search, locate)",
-                 ours=("fm_search", "lf_locate", "tile_reduce", "agg_scan",
-                       "tile_scan"))
+                 ours=("fm_search", "lf_locate", "scan_onepass"))
     del fm
 
     # count, locate and extract: the host verbs against the genome's bytes
@@ -1100,7 +1238,7 @@ def main() -> int:
         launches, dlaunches = phase_end_to_end(dev, work)
         with tempfile.TemporaryDirectory() as large:
             phase_two_large_blocks(dev, large)
-        qerr, qtimes, qbounds = phase_query_kernels(dev)
+        qerr, qtimes, qbounds, qrr = phase_query_kernels(dev)
         slaunches = phase_search(dev, work, os.path.join(work, "port.gcz"))
     loaded = [m for m in sys.modules if m.split(".")[0] in REFUSED]
     check(not loaded, f"{loaded} were imported")
@@ -1127,11 +1265,15 @@ def main() -> int:
     def query_entry(name, source, replaces):
         run, key = runs[name]
         ms, plain = qtimes[key]
-        return {"name": name, "route": "cuda", "source": source,
-                "replaces": replaces, "launches": run[name],
-                "max_abs_err": qerr[name], "ms": ms, "plain_ms": plain,
-                "bound_ms": bound_ms(qbounds[key]), "bound_by": "bytes",
-                "library_ms": None}
+        out = {"name": name, "route": "cuda", "source": source,
+               "replaces": replaces, "launches": run[name],
+               "max_abs_err": qerr[name], "ms": ms, "plain_ms": plain,
+               "bound_ms": bound_ms(qbounds[key]), "bound_by": "bytes",
+               "library_ms": None}
+        if key in qrr:
+            # its distinct sectors at the card's random 32-byte row rate
+            out["random_read_bound_ms"] = qrr[key]
+        return out
     # cummax_i32 and cummin_rev_i32 share the kernel template but have no
     # caller on the paths (no launch to show): checked and timed above,
     # listed apart

@@ -4,7 +4,8 @@ decode.
 Port of gecoz_tpu/ops/fmq.py: `DeviceFMBlock` (41-131), the query-state
 builds (`build_device_block_jit` 507-578, `build_device_block_parts_jit`
 394-448, `device_block_from_fm` 386), the tables (`with_lf_table` 210,
-`with_locate_table` 170, `with_kmer_table` 635), the queries (`occ_inclusive`
+`with_locate_table` 170, `with_kmer_table` 635; and the port's own
+search table, `with_rank_blocks`), the queries (`occ_inclusive`
 591, `lf_batch` 616, `search_batch` 689, `locate_batch` 756,
 `decode_text_jit` 816); `decode_text_device` (923) is the port's
 `tools/driver.py::_device_decode`, phase by phase.  Every function
@@ -22,7 +23,8 @@ Differences from the reference:
   reads as a negative int32.
 * The reference splits the plane layout at `_PAIR_LIMIT` into a fused
   (word, prefix) pair table for the TPU's (8, 128) tiling; the port keeps
-  only the flat `plane_words`/`plane_pres`.
+  the flat `plane_words`/`plane_pres`, and for the search kernel K1 a rank
+  table of 32-byte blocks (`rank_blocks`), one sector per occ lookup.
 * Permutations are composed by direct gather (`lf[lf]`), where the
   reference composes them on the sort side; the tables are the same.
 * The decode lift uploads the BWT as uint8: the reference's 2-bit packed
@@ -81,6 +83,10 @@ class DeviceFMBlock:
                                # kmer_offset(kmer_bits, j); empty [0, 2]
     loc_tab: torch.Tensor      # int32 [n, 2] (first sampled row on the
                                # row's LF path, steps to it); empty [0, 2]
+    rank_blocks: torch.Tensor  # u32 bits as int32 [sigma*Wb, 8], Wb =
+                               # ceil(n/224): per plane and 224 positions,
+                               # the rank prefix and 7 bit words (K1's occ
+                               # table); empty [0, 8]
     sf: int                    # sampling factor
     kmer_bits: int = 0         # bits per plane code of kmer_tab
     kmer_k: int = 0            # longest seeded suffix
@@ -120,18 +126,24 @@ class DeviceFMBlock:
     def has_loc(self) -> bool:
         return self.loc_tab.shape[0] > 0
 
+    @property
+    def has_rank_blocks(self) -> bool:
+        return self.rank_blocks.shape[0] > 0
+
 
 _U32_FIELDS = ("plane_words", "plane_pres", "mark_words", "lf_tab",
-               "lfk_tab")
+               "lfk_tab", "rank_blocks")
 _INT_FIELDS = ("sf", "kmer_bits", "kmer_k", "lfk_k")
 
 
 def _no_tables(dev) -> dict[str, torch.Tensor]:
-    """The four optional tables, empty (the reference's shapes)."""
+    """The optional tables, empty (the reference's shapes; rank_blocks is
+    the port's own)."""
     return dict(lf_tab=torch.zeros(0, dtype=_I32, device=dev),
                 lfk_tab=torch.zeros((0, 2), dtype=_I32, device=dev),
                 kmer_tab=torch.zeros((0, 2), dtype=_I32, device=dev),
-                loc_tab=torch.zeros((0, 2), dtype=_I32, device=dev))
+                loc_tab=torch.zeros((0, 2), dtype=_I32, device=dev),
+                rank_blocks=torch.zeros((0, 8), dtype=_I32, device=dev))
 
 
 def block_to_numpy(block: DeviceFMBlock) -> dict[str, np.ndarray]:
@@ -154,9 +166,11 @@ def block_from_numpy(fields_np: dict, sf: int) -> DeviceFMBlock:
     ref._asdict().items()}`), tables and static ints included.
 
     A non-empty `plane_pairs` [sigma*W, 2] maps to the flat
-    `plane_words`/`plane_pres`.  The tensors are on the CPU.
+    `plane_words`/`plane_pres`; `rank_blocks`, which the reference does not
+    have, is empty unless given.  The tensors are on the CPU.
     """
     src = dict(fields_np)
+    src.setdefault("rank_blocks", np.zeros((0, 8), np.uint32))
     pairs = src.get("plane_pairs")
     if pairs is not None and np.asarray(pairs).shape[0] > 0:
         pairs = np.asarray(pairs)
@@ -500,6 +514,28 @@ def with_kmer_table(block: DeviceFMBlock, k: int | None = None
                    kmer_bits=bits, kmer_k=k)
 
 
+def with_rank_blocks(block: DeviceFMBlock) -> DeviceFMBlock:
+    """Attach the search's rank table: for plane r and block b (224 BWT
+    positions, 7 words), row r*Wb + b holds the plane's count of ones before
+    position 224*b (`plane_pres[r*W + 7b]`) and its words 7b .. 7b+6, zero
+    past W.  Kernel K1 then reads one aligned 32-byte block per occ lookup;
+    the flat planes stay for every other reader.  A strided gather of the
+    prefixes and a cat with the words; about sigma * 32 / 224 bytes a
+    character (0.86 at sigma = 6)."""
+    W = block.W
+    if block.n == 0 or block.has_rank_blocks:
+        return block
+    per = fmsearch.BLOCK_CHARS // 32                 # words a block: 7
+    nplanes = block.plane_words.shape[0] // W
+    wb = -(-W // per)                                # = ceil(n / 224)
+    words = block.plane_words.view(nplanes, W)
+    if wb * per > W:
+        words = torch.cat([words, words.new_zeros(nplanes, wb * per - W)], 1)
+    pres = block.plane_pres.view(nplanes, W)[:, ::per]
+    rb = torch.cat([pres.unsqueeze(2), words.view(nplanes, wb, per)], 2)
+    return replace(block, rank_blocks=rb.view(nplanes * wb, 1 + per))
+
+
 def search_batch(block: DeviceFMBlock, patterns: torch.Tensor,
                  lengths: torch.Tensor):
     """Backward-search many patterns (kernel K1 on the card).
@@ -508,7 +544,8 @@ def search_batch(block: DeviceFMBlock, patterns: torch.Tensor,
     L-1, leading columns zero-padded); `lengths` is int32 [B].  Returns
     int32 (sp, ep) inclusive row ranges; ep < sp means no match.  With a
     k-mer table attached each query's last min(len, k) characters resolve
-    in one table read."""
+    in one table read.  On the card the block needs its rank table
+    (`with_rank_blocks`)."""
     return fmsearch.backward_search(block, patterns, lengths)
 
 

@@ -5,10 +5,13 @@ gecoz_tpu/ops/fmq.py (583-613, 688-741).  `backward_search(block,
 patterns, lengths)` takes the block's tensors and right-aligned patterns:
 
 * on CUDA tensors it launches the hand-written Hopper kernel
-  (`csrc/fmsearch.cu`, built at first use) and adds one to its count in
-  `LAUNCHES`; a failed build or launch raises;
-* on CPU tensors it runs `backward_search_ref`, the plain PyTorch version,
-  which the card is also checked against.
+  (`csrc/fmsearch.cu`, built at first use, its kernel loaded by `_lib()`),
+  which reads the block's rank table (`rank_blocks`, attached by
+  `fmq.with_rank_blocks`: one 32-byte block per occ lookup), and adds one
+  to its count in `LAUNCHES`; a block without the table, or a failed build
+  or launch, raises;
+* on CPU tensors it runs `backward_search_ref`, the plain PyTorch version
+  on the flat planes, which the card is also checked against.
 
 `block` is any object with the fields of `ops/fmq.py::DeviceFMBlock`.
 uint32 words are held in int32 tensors with the same bits.
@@ -17,10 +20,13 @@ uint32 words are held in int32 tensors with the same bits.
 from __future__ import annotations
 
 import ctypes
+import time
 
 import torch
 
 _I32 = torch.int32
+# BWT positions a rank block covers: 7 bit words (csrc/fmsearch.cu kBlockChars)
+BLOCK_CHARS = 224
 
 # launches of the CUDA kernel; the plain version never counts
 LAUNCHES: dict[str, int] = {"fm_search": 0}
@@ -32,25 +38,37 @@ def reset_launches() -> None:
 
 
 _LIB: ctypes.CDLL | None = None
+INIT_SECONDS: float | None = None       # the kernel's load time (_lib())
 
 
 def _lib() -> ctypes.CDLL:
-    """The built kernel library, its C signatures declared (first use)."""
-    global _LIB
+    """The built kernel library, its C signatures declared and its kernel
+    loaded (first use): the first CUDA call of the library's own runtime
+    and the kernel's module load happen here, not in the first launch."""
+    global _LIB, INIT_SECONDS
     if _LIB is not None:
         return _LIB
     from gecoz_tpu_torch.kernels import _build
     lib = _build.load("fmsearch")
+    P, I, I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
     lib.gecoz_fm_search_max_k.argtypes = []
-    lib.gecoz_fm_search_max_k.restype = ctypes.c_int
-    lib.gecoz_fm_search.argtypes = [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p,
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
-    lib.gecoz_fm_search.restype = ctypes.c_int
-    lib.gecoz_cuda_error_string.argtypes = [ctypes.c_int]
+    lib.gecoz_fm_search.argtypes = [P, P, I64, I64, P, I64, P, P, P, I, I,
+                                    P, P, P]
+    lib.gecoz_fm_search_v1.argtypes = [P, P, I64, I64, P, P, I64, P, P, P, I,
+                                       I, P, P, P]
+    lib.gecoz_fm_init.argtypes = []
+    for fn in (lib.gecoz_fm_search_max_k, lib.gecoz_fm_search,
+               lib.gecoz_fm_search_v1, lib.gecoz_fm_init):
+        fn.restype = I
+    lib.gecoz_cuda_error_string.argtypes = [I]
     lib.gecoz_cuda_error_string.restype = ctypes.c_char_p
+    t0 = time.perf_counter()
+    rc = lib.gecoz_fm_init()
+    if rc != 0:
+        msg = lib.gecoz_cuda_error_string(rc).decode()
+        raise RuntimeError(f"fm_search kernel did not load: CUDA error {rc}: "
+                           f"{msg}")
+    INIT_SECONDS = time.perf_counter() - t0
     _LIB = lib
     return lib
 
@@ -161,10 +179,36 @@ def _check(block, patterns: torch.Tensor, lengths: torch.Tensor) -> None:
         raise TypeError("backward_search: c must be [257], sym_plane [256]")
 
 
-def _search_cuda(block, patterns, lengths):
+def _check_rank_blocks(block) -> int:
+    """Blocks per plane of the block's rank table; raises when the table is
+    missing or not what the kernel reads."""
+    rb = block.rank_blocks
+    if rb.shape[0] == 0:
+        raise ValueError("backward_search on the card reads the block's rank "
+                         "table: attach it with fmq.with_rank_blocks")
+    nplanes = block.plane_words.shape[0] // max(block.W, 1)
+    wb = -(-block.n // BLOCK_CHARS)
+    if rb.dtype != _I32 or tuple(rb.shape) != (nplanes * wb, 8) \
+            or not rb.is_contiguous():
+        raise TypeError(f"backward_search: rank_blocks must be contiguous "
+                        f"int32 [{nplanes * wb}, 8], got {rb.dtype} "
+                        f"{tuple(rb.shape)}")
+    if rb.device != block.plane_words.device:
+        raise TypeError(f"backward_search: rank_blocks on {rb.device}")
+    if rb.data_ptr() % 32:
+        raise ValueError("backward_search: rank_blocks must be 32-byte "
+                         "aligned (one sector a block)")
+    return wb
+
+
+def _search_launch(block, patterns, lengths, v1: bool = False):
+    """One launch of the search kernel on checked CUDA tensors; v1=True
+    launches the first design (the flat planes) instead, which
+    chip_smoke.py times beside it."""
     B, L = patterns.shape
     sp = torch.empty(B, dtype=_I32, device=patterns.device)
     ep = torch.empty_like(sp)
+    wb = 0 if v1 else _check_rank_blocks(block)
     if B == 0:
         return sp, ep
     lib = _lib()
@@ -175,19 +219,25 @@ def _search_cuda(block, patterns, lengths):
                          f"{bits} bits per code is beyond the kernel")
     if k and block.kmer_tab.data_ptr() % 8:
         raise ValueError("backward_search: kmer_tab must be 8-byte aligned")
+    kmer = block.kmer_tab.data_ptr() if k else None
     with torch.cuda.device(patterns.device):
         stream = torch.cuda.current_stream(patterns.device).cuda_stream
-        rc = lib.gecoz_fm_search(
-            patterns.data_ptr(), lengths.data_ptr(), B, L,
-            block.plane_words.data_ptr(), block.plane_pres.data_ptr(),
-            block.W, block.c.data_ptr(), block.sym_plane.data_ptr(),
-            block.kmer_tab.data_ptr() if k else None, bits, k,
-            sp.data_ptr(), ep.data_ptr(), stream)
+        if v1:
+            rc = lib.gecoz_fm_search_v1(
+                patterns.data_ptr(), lengths.data_ptr(), B, L,
+                block.plane_words.data_ptr(), block.plane_pres.data_ptr(),
+                block.W, block.c.data_ptr(), block.sym_plane.data_ptr(),
+                kmer, bits, k, sp.data_ptr(), ep.data_ptr(), stream)
+        else:
+            rc = lib.gecoz_fm_search(
+                patterns.data_ptr(), lengths.data_ptr(), B, L,
+                block.rank_blocks.data_ptr(), wb, block.c.data_ptr(),
+                block.sym_plane.data_ptr(), kmer, bits, k, sp.data_ptr(),
+                ep.data_ptr(), stream)
     if rc != 0:
         msg = lib.gecoz_cuda_error_string(rc).decode()
         raise RuntimeError(f"fm_search kernel (B={B}, L={L}) was not "
                            f"launched: CUDA error {rc}: {msg}")
-    LAUNCHES["fm_search"] += 1
     return sp, ep
 
 
@@ -197,13 +247,17 @@ def backward_search(block, patterns: torch.Tensor, lengths: torch.Tensor):
     `patterns` is uint8 [B, L] right-aligned (last character at column
     L-1, leading columns zero-padded), `lengths` int32 [B], L >= 1.  With a
     k-mer table attached the last min(len, k) characters resolve in one
-    table read.  Returns int32 (sp, ep) inclusive row ranges; ep < sp means
-    no match."""
+    table read.  On the card the block needs its rank table
+    (`fmq.with_rank_blocks`).  Returns int32 (sp, ep) inclusive row ranges;
+    ep < sp means no match."""
     _check(block, patterns, lengths)
     if patterns.shape[1] == 0:
         raise ValueError("backward_search: patterns need L >= 1 columns")
     if patterns.is_cuda:
-        return _search_cuda(block, patterns, lengths)
+        out = _search_launch(block, patterns, lengths)
+        if patterns.shape[0]:
+            LAUNCHES["fm_search"] += 1
+        return out
     if patterns.device.type != "cpu":
         raise TypeError(f"backward_search: unsupported device "
                         f"{patterns.device}")

@@ -11,7 +11,8 @@ import torch
 
 from gecoz_tpu_torch.ops.fmq import (DeviceFMBlock, build_device_block,
                                      decode_text, locate_batch, search_batch,
-                                     with_kmer_table, with_lf_table)
+                                     with_kmer_table, with_lf_table,
+                                     with_rank_blocks)
 from gecoz_tpu_torch.ops.sa_device import (_suffix_array, _suffix_array_runs,
                                            bwt_device)
 from gecoz_tpu_torch.ops.sa_host import dense_table
@@ -60,8 +61,8 @@ def index_and_query(s: torch.Tensor, patterns: torch.Tensor,
     Returns (sp, ep, located_start, text).  The locate reads row sp
     clamped into [0, n), as the reference's gather clamps an empty range's
     sp = n."""
-    block = with_kmer_table(with_lf_table(
-        index_block(s, sf=sf, symbols=symbols, sa_impl=sa_impl)))
+    block = with_rank_blocks(with_kmer_table(with_lf_table(
+        index_block(s, sf=sf, symbols=symbols, sa_impl=sa_impl))))
     sp, ep = search_batch(block, patterns, lengths)
     start_vals = locate_batch(block, sp.clamp(0, block.n - 1))
     return sp, ep, start_vals, decode_text(block)

@@ -4,8 +4,10 @@ Port of gecoz_tpu/ops/scan_pallas.py.  Every entry point takes a 1-D
 contiguous int32 tensor:
 
 * on a CUDA tensor it launches the hand-written Hopper kernel
-  (`csrc/scan.cu`, built at first use) whatever n is, and adds one to its
-  count in `LAUNCHES`; a failed build or launch raises;
+  (`csrc/scan.cu`, built at first use, its kernels loaded by `_lib()`)
+  whatever n is: one single-pass launch, beside the memset of its zeroed
+  look-back scratch; it adds one to its count in `LAUNCHES`; a failed
+  build or launch raises;
 * on a CPU tensor it runs the plain PyTorch version, which is also exported
   under its own name (`*_ref`) so the card can be checked against it.
 
@@ -17,6 +19,7 @@ non-negative wins, unit -1) needs it.
 from __future__ import annotations
 
 import ctypes
+import time
 
 import torch
 
@@ -34,23 +37,37 @@ def reset_launches() -> None:
 
 
 _LIB: ctypes.CDLL | None = None
+INIT_SECONDS: float | None = None       # the kernels' load time (_lib())
 
 
 def _lib() -> ctypes.CDLL:
-    """The built kernel library, its C signatures declared (first use)."""
-    global _LIB
+    """The built kernel library, its C signatures declared and its kernels
+    loaded (first use): the first CUDA call of the library's own runtime
+    and each kernel's module load happen here, not in the first launch."""
+    global _LIB, INIT_SECONDS
     if _LIB is not None:
         return _LIB
     from gecoz_tpu_torch.kernels import _build
     lib = _build.load("scan")
+    P, I, I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
     lib.gecoz_scan_tile.argtypes = []
-    lib.gecoz_scan_tile.restype = ctypes.c_int64
-    lib.gecoz_scan_i32.argtypes = [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
-        ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-    lib.gecoz_scan_i32.restype = ctypes.c_int
-    lib.gecoz_cuda_error_string.argtypes = [ctypes.c_int]
+    lib.gecoz_scan_sweep_tile.argtypes = [I]
+    for fn in (lib.gecoz_scan_tile, lib.gecoz_scan_sweep_tile):
+        fn.restype = I64
+    lib.gecoz_scan_i32.argtypes = [P, P, P, I64, I, I, P]
+    lib.gecoz_scan_sweep.argtypes = [P, P, P, I64, I, P]
+    lib.gecoz_scan_init.argtypes = []
+    for fn in (lib.gecoz_scan_i32, lib.gecoz_scan_sweep, lib.gecoz_scan_init):
+        fn.restype = I
+    lib.gecoz_cuda_error_string.argtypes = [I]
     lib.gecoz_cuda_error_string.restype = ctypes.c_char_p
+    t0 = time.perf_counter()
+    rc = lib.gecoz_scan_init()
+    if rc != 0:
+        msg = lib.gecoz_cuda_error_string(rc).decode()
+        raise RuntimeError(f"scan kernels did not load: CUDA error {rc}: "
+                           f"{msg}")
+    INIT_SECONDS = time.perf_counter() - t0
     _LIB = lib
     return lib
 
@@ -62,6 +79,24 @@ def _check(x: torch.Tensor) -> None:
                         f"{'' if x.is_contiguous() else ' (strided)'}")
 
 
+def _scratch(out: torch.Tensor, tile: int) -> torch.Tensor | None:
+    """The look-back's scratch: a zeroed int64 status word a tile and the
+    tile counter; none for one tile.  Tiles lie on out's 16-byte grid, so
+    their count depends on where out starts."""
+    lead = (out.data_ptr() >> 2) & 3
+    tiles = -(-(out.shape[0] + lead) // tile)
+    if tiles == 1:
+        return None
+    return torch.zeros(tiles + 1, dtype=torch.int64, device=out.device)
+
+
+def _raise_on(rc: int, what: str) -> None:
+    if rc != 0:
+        msg = _lib().gecoz_cuda_error_string(rc).decode()
+        raise RuntimeError(f"scan kernel ({what}) was not launched: CUDA "
+                           f"error {rc}: {msg}")
+
+
 def _scan_cuda(x: torch.Tensor, op: str, reverse: bool,
                name: str) -> torch.Tensor:
     n = x.shape[0]
@@ -69,19 +104,36 @@ def _scan_cuda(x: torch.Tensor, op: str, reverse: bool,
     if n == 0:
         return out
     lib = _lib()
-    tiles = -(-n // lib.gecoz_scan_tile())
-    agg = torch.empty(tiles if tiles > 1 else 0, dtype=torch.int32,
-                      device=x.device)
+    status = _scratch(out, lib.gecoz_scan_tile())
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = lib.gecoz_scan_i32(x.data_ptr(), out.data_ptr(),
-                                agg.data_ptr() if tiles > 1 else None, n,
-                                _OPS[op], int(reverse), stream)
-    if rc != 0:
-        msg = lib.gecoz_cuda_error_string(rc).decode()
-        raise RuntimeError(f"scan kernel ({op}, reverse={reverse}, n={n}) "
-                           f"was not launched: CUDA error {rc}: {msg}")
+        rc = lib.gecoz_scan_i32(
+            x.data_ptr(), out.data_ptr(),
+            None if status is None else status.data_ptr(), n, _OPS[op],
+            int(reverse), stream)
+    _raise_on(rc, f"{op}, reverse={reverse}, n={n}")
     LAUNCHES[name] += 1
+    return out
+
+
+def _sweep_launch(x: torch.Tensor, shape: int) -> torch.Tensor:
+    """The forward add at tile shape `shape` (0 is the path's, 256 threads x
+    32 at five blocks an SM; 1 the same tile at four, 2 256 x 16 at six),
+    for chip_smoke.py's sweep; never counts."""
+    _check(x)
+    lib = _lib()
+    tile = lib.gecoz_scan_sweep_tile(shape)
+    if not x.is_cuda or tile == 0 or x.shape[0] == 0:
+        raise ValueError(f"scan sweep: shape {shape} on {x.device}")
+    out = torch.empty_like(x)
+    status = _scratch(out, tile)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        rc = lib.gecoz_scan_sweep(
+            x.data_ptr(), out.data_ptr(),
+            None if status is None else status.data_ptr(), x.shape[0], shape,
+            stream)
+    _raise_on(rc, f"sweep shape {shape}, n={x.shape[0]}")
     return out
 
 

@@ -34,10 +34,12 @@ def pack_patterns(patterns: list[bytes]) -> tuple[np.ndarray, np.ndarray]:
 
 
 def search_tables(fm, dev: torch.device) -> fmq.DeviceFMBlock:
-    """The block's query state with the k-mer seed table and either the
-    locate table or, past the memory budget, the fused LF table."""
+    """The block's query state with the k-mer seed table, the search's rank
+    table, and either the locate table or, past the memory budget, the
+    fused LF table."""
     budget = hbm_budget(dev)
-    base = fmq.with_kmer_table(fmq.device_block_from_fm(fm, dev))
+    base = fmq.with_rank_blocks(fmq.with_kmer_table(
+        fmq.device_block_from_fm(fm, dev)))
     if budget is None or fm.length * LOCATE_TABLE_BYTES_PER_CHAR <= budget:
         return fmq.with_locate_table(base)
     return fmq.with_lf_table(base, decode=False)

@@ -63,6 +63,70 @@ def test_kernel_matches_plain(cuda, n, gen):
         assert torch.equal(got, getattr(scan, name + "_ref")(x)), (name, n)
 
 
+# the one-pass scan's tile edges, T the path's tile: one tile and its
+# neighbours, a ragged second tile, a look-back past one warp's window of 32
+# tiles, and one of 40 such windows
+TILE_EDGES = {"T-1": (1, -1), "T": (1, 0), "T+1": (1, 1), "2T+7": (2, 7),
+              "33T+1": (33, 1), "1280T+5": (40 * 32, 5)}
+# op -> its plain forward scan; the reverse one runs it on the flipped input
+PLAIN = {"add": scan.cumsum_i32_ref, "max": scan.cummax_i32_ref,
+         "min": lambda x: scan.cummin_rev_i32_ref(x.flip(0)).flip(0),
+         "last": scan.fill_fwd_i32_ref}
+ENTRY_OF = {"add": "cumsum_i32", "max": "cummax_i32", "min": "cummin_rev_i32",
+            "last": "fill_fwd_i32"}
+
+
+def _plain_scan(op, reverse, x):
+    return PLAIN[op](x.flip(0)).flip(0) if reverse else PLAIN[op](x)
+
+
+@pytest.mark.parametrize("edge", list(TILE_EDGES))
+def test_one_pass_scan_at_tile_edges(cuda, gen, edge):
+    """Every op in both directions at the tile edges, on views that start
+    0, 4 and 12 bytes past a 16-byte boundary (head and tail take the
+    scalar path, n % 4 != 0 included); fills on sparse marks, on no mark at
+    all and on a single mark at either end (in the last tile of one
+    direction, carried through every tile's look-back in the other); int32
+    adds that wrap.  One launch counted a call."""
+    tiles, extra = TILE_EDGES[edge]
+    n = tiles * scan._lib().gecoz_scan_tile() + extra
+    full = gen.integers(-2 ** 31, 2 ** 31, size=n + 3,
+                        dtype=np.int64).astype(np.int32)
+    marks = _inputs("fill_fwd_i32", n + 3, gen)
+    none = np.full(n + 3, -1, np.int32)
+    for off in (0, 1, 3):
+        first, last = none.copy(), none.copy()
+        first[off], last[off + n - 1] = 12345, 678
+        for op in PLAIN:
+            cases = (marks, none, first, last) if op == "last" else (full,)
+            for host in cases:
+                buf = torch.from_numpy(host).to(cuda)
+                x = buf[off:off + n]
+                assert x.data_ptr() % 16 == 4 * off
+                for reverse in (False, True):
+                    name = ENTRY_OF[op]
+                    before = scan.LAUNCHES[name]
+                    got = scan._scan_cuda(x, op, reverse, name)
+                    torch.cuda.synchronize()
+                    assert scan.LAUNCHES[name] == before + 1
+                    assert torch.equal(got, _plain_scan(op, reverse, x)), (
+                        op, reverse, off, n)
+
+
+def test_scan_sweep_shapes_match_plain(cuda, gen):
+    """The add at the three tile shapes chip_smoke.py times."""
+    for n in (1, 4095, 8193, 3 * 8192 + 5, 70 * 8192 + 3):
+        x = torch.from_numpy(_inputs("cumsum_i32", n + 1, gen)).to(cuda)[1:]
+        want = scan.cumsum_i32_ref(x)
+        for shape in (0, 1, 2):
+            assert torch.equal(scan._sweep_launch(x, shape), want), (n, shape)
+
+
+def test_scan_kernels_load_before_the_first_launch(cuda):
+    scan._lib()
+    assert scan.INIT_SECONDS is not None
+
+
 def _genomic(gen, n=1 << 16):
     s = gen.choice(np.frombuffer(b"ACGT", np.uint8), size=n)
     s[500:500 + n // 8] = ord("N")
@@ -123,7 +187,8 @@ def test_fm_search_kernel_matches_plain(cuda, gen):
     lens = gen.integers(1, 150, size=3000)
     pats = [bytes(s[a:a + n]) for a, n in zip(starts, lens)]
     pats += [b"Z", b"AZ", b"ACGTZ", b"\0", b"N" * 40, b"ACGT" * 30]
-    for block in (blk, fmq.with_kmer_table(blk), fmq.with_kmer_table(blk, 3)):
+    blocks = (blk, fmq.with_kmer_table(blk), fmq.with_kmer_table(blk, 3))
+    for block in map(fmq.with_rank_blocks, blocks):
         for sub in (pats, [p[-1:] for p in pats]):         # L = 1 too
             arr, ln = _pack(sub)
             a = torch.from_numpy(arr).to(cuda)
@@ -135,6 +200,27 @@ def test_fm_search_kernel_matches_plain(cuda, gen):
             want = fmsearch.backward_search_ref(block, a, n)
             assert torch.equal(got[0], want[0])
             assert torch.equal(got[1], want[1])
+            old = fmsearch._search_launch(block, a, n, v1=True)
+            assert torch.equal(old[0], want[0])
+            assert torch.equal(old[1], want[1])
+
+
+def test_fm_search_without_rank_blocks_raises(cuda, gen):
+    """No silent rebuild and no fallback: a block without its rank table
+    is refused before any launch."""
+    _, blk = _card_block(cuda, gen)
+    a = torch.from_numpy(np.frombuffer(b"ACGTACGT", np.uint8).copy()
+                         ).to(cuda).view(1, 8)
+    n = torch.full((1,), 8, dtype=torch.int32, device=cuda)
+    before = fmsearch.LAUNCHES["fm_search"]
+    with pytest.raises(ValueError, match="with_rank_blocks"):
+        fmq.search_batch(fmq.with_kmer_table(blk), a, n)
+    assert fmsearch.LAUNCHES["fm_search"] == before
+
+
+def test_fm_kernels_load_before_the_first_launch(cuda):
+    fmsearch._lib()
+    assert fmsearch.INIT_SECONDS is not None
 
 
 def test_fm_search_lengths_past_width(cuda, gen):
@@ -145,7 +231,7 @@ def test_fm_search_lengths_past_width(cuda, gen):
     pats = [bytes(s[a:a + 30]) for a in starts]
     arr, ln = _pack(pats)
     a = torch.from_numpy(arr).to(cuda)
-    for block in (blk, fmq.with_kmer_table(blk)):
+    for block in map(fmq.with_rank_blocks, (blk, fmq.with_kmer_table(blk))):
         exact = fmq.search_batch(block, a, torch.from_numpy(ln).to(cuda))
         for extra in (1, 7, 1 << 20):
             n = torch.from_numpy(ln + extra).to(cuda)
