@@ -21,9 +21,10 @@ Phases (any mismatch or exception exits non-zero):
 4. the query-state build (`index_block`) against the port's plain path on
    the CPU, field by field, and its time at 4 MiB and 64 MiB;
 5. end to end: a seeded FASTA with a 64 MiB chromosome-class block through
-   `python -m gecoz_tpu_torch.cli`, the .gcz/.gcx bytes held against the
-   host tier's (`encode_block_host`: SA-IS, BWT and wavelet fill on the
-   host), then decompressed by the port's CLI on the card and held byte
+   `python -m gecoz_tpu_torch.cli` (the mesh route: `encode_blocks`, its
+   phase walls and the bytes the host fetched per block), the .gcz/.gcx
+   bytes held against the host tier's (`encode_block_host`: SA-IS, BWT and
+   wavelet fill on the host), then decompressed by the port's CLI on the card and held byte
    for byte against the host FM-index's own decode of every block,
    formatted by the FASTA writer, and by md5 per record against the input;
    the first decode launch timed apart; the card's busy share of one
@@ -50,14 +51,26 @@ Phases (any mismatch or exception exits non-zero):
    table) and at a budget forced low (LF walks); count and locate against
    what a plain byte search of the genome gives, written as the verbs write
    it (byte for byte), range extract against the genome's bytes; the card's busy share of one 64 MiB block's search under
-   torch.profiler.
+   torch.profiler;
+10. (run after phase 3) the sharded suffix sort and the mesh encode on
+    virtual meshes of the card: a 64 MiB chromosome-like block with N runs
+    over (cuda:0,) * 8 (auto: the run-aware variant; the path of the scan's max and reverse-min
+    entry points, whose launches this run gives the kernels line), 16 MiB
+    of N-free DNA by the k-mer variant over (cuda:0,) * 6 (odd-even
+    transposition), each against the host library's SA-IS and BWT gather;
+    a one-shard mesh at 4 MiB against `suffix_array_device`; a 4 MiB block
+    encoded through `encode_blocks` with the sharded route forced, against
+    the host tier; the dry run (`dryrun_multichip`) over (cuda:0,) * 8.
+    Wall time, peak device memory per char, the distributed sorts and
+    exchange rounds, and the scan launches of each.
 
 The port stands alone: an import hook refuses JAX and gecoz_tpu, and the
 oracles are the port's host copies (tests/test_torch_host_copies.py holds
 them equal to gecoz_tpu's on the CPU) or plain computations on the
 genome.  The last line is {"ok": true, "device": {...}}; the line before
 it lists the kernels of the paths with their launches in the runs through
-the CLI, their times, bounds and library calls.
+the CLI (the scan's max and reverse min: in phase 10's 64 MiB sharded
+sort), their times, bounds and library calls.
 """
 
 from __future__ import annotations
@@ -90,6 +103,7 @@ MiB = 1 << 20
 SCAN_SIZES = (1, 777, 65536, 2 * 65536 + 7, 4 * MiB, 64 * MiB + 12345)
 TIMED_SIZES = (4 * MiB, 64 * MiB)
 PATH_KERNELS = ("cumsum_i32", "fill_rev_i32", "fill_fwd_i32")
+SHARDED_KERNELS = ("cummax_i32", "cummin_rev_i32")   # phase 10's path
 KERNELS = ("cumsum_i32", "cummax_i32", "cummin_rev_i32", "fill_fwd_i32",
            "fill_rev_i32")
 REPLACES = "gecoz_tpu/ops/scan_pallas.py:114"     # _scan_pallas
@@ -138,6 +152,20 @@ def bound_ms(nbytes: float) -> float:
     """The least time the card could take to move `nbytes` (each input
     byte read once, each output byte written once) at its HBM rate."""
     return nbytes / HBM_BYTES_PER_S * 1e3
+
+
+def print_fetched() -> None:
+    """The bytes the host fetched per block in the compress run (the mesh
+    route: mark bits, sampled values, wavelet node bits), beside the
+    int32 suffix array the per-block route fetched on top of the node
+    bits."""
+    from gecoz_tpu_torch.parallel import mesh
+    for f in mesh.FETCHED:
+        got = f["marks"] + f["samples"] + f["wavelet"]
+        print(f"#   fetched for a {f['n']}-byte block: {f['marks']} mark + "
+              f"{f['samples']} sample + {f['wavelet']} wavelet bytes = "
+              f"{got / f['n']:.3f} B/char (a full int32 SA and the node "
+              f"bits: {(4 * f['n'] + f['wavelet']) / f['n']:.3f} B/char)")
 
 
 def md5_records(path) -> dict[str, str]:
@@ -586,6 +614,7 @@ def phase_end_to_end(dev, workdir):
     import torch
     from gecoz_tpu_torch import cli
     from gecoz_tpu_torch.ops import lfwalk
+    from gecoz_tpu_torch.parallel import mesh
     from gecoz_tpu_torch.utils import metrics
 
     fa = os.path.join(workdir, "genome.fa")
@@ -598,6 +627,7 @@ def phase_end_to_end(dev, workdir):
     print(f"# FASTA: {os.path.getsize(fa)} bytes, {total} bases")
 
     port_gcz = os.path.join(workdir, "port.gcz")
+    mesh.FETCHED.clear()
     metrics.reset()
     torch.cuda.reset_peak_memory_stats(dev)
     reset_counts()                            # the compress path starts
@@ -611,6 +641,7 @@ def phase_end_to_end(dev, workdir):
     print(f"# port CLI compress: {secs:.2f} s -> {total / 1e6 / secs:.2f} "
           f"MB/s end to end; peak device memory {peak / 2**30:.2f} GiB")
     print_phases()
+    print_fetched()
 
     host_gcz = os.path.join(workdir, "host.gcz")
     t0 = time.perf_counter()
@@ -691,6 +722,7 @@ def phase_two_large_blocks(dev, workdir):
     import numpy as np
     import torch
     from gecoz_tpu_torch import cli
+    from gecoz_tpu_torch.parallel import mesh
     from gecoz_tpu_torch.utils import metrics
 
     rng = np.random.default_rng(17)
@@ -706,6 +738,7 @@ def phase_two_large_blocks(dev, workdir):
     metrics.reset()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats(dev)
+    mesh.FETCHED.clear()
     t0 = time.perf_counter()
     rc = cli.main(["-i", fa, "-o", gcz, "--device", str(dev)])
     torch.cuda.synchronize()
@@ -719,6 +752,7 @@ def phase_two_large_blocks(dev, workdir):
           f"GiB reserved by torch, {free / 2**30:.2f} of {cap / 2**30:.2f} "
           "GiB free on the card")
     print_phases()
+    print_fetched()
     os.unlink(fa)
     back = os.path.join(workdir, "large_back.fa")
     metrics.reset()
@@ -1208,6 +1242,116 @@ def phase_search(dev, workdir, port_gcz):
     return launches
 
 
+def sharded_run(label, s, mesh, impl, want=None, again=False):
+    """One sharded suffix sort of `s` over `mesh`, timed, with its peak
+    device memory, distributed sorts and exchange rounds, and the scan
+    launches it made; sa and bwt held against the host library's SA-IS
+    and BWT gather (or `want`, a (sa, bwt) pair); with `again`, a second
+    run timed after it.  Returns the first run's launches."""
+    import numpy as np
+    import torch
+    from gecoz_tpu_torch import native
+    from gecoz_tpu_torch.ops.sa import bwt_from_sa
+    from gecoz_tpu_torch.parallel import sharded_sa as ss
+    dev, n = mesh[0], len(s)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    free, cap = torch.cuda.mem_get_info(dev)
+    retries = torch.cuda.memory_stats(dev)["num_alloc_retries"]
+    ss.reset_stats()
+    reset_counts()                             # the sharded path starts
+    t0 = time.perf_counter()
+    sa, bwt = ss.suffix_array_sharded(s, mesh=mesh, impl=impl)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = counts()                        # ... and ends here
+    peak = torch.cuda.max_memory_allocated(dev) - base
+    retries = torch.cuda.memory_stats(dev)["num_alloc_retries"] - retries
+    stats = dict(ss.STATS)
+    check(all(x.device == dev for x in sa + bwt), f"{label}: shards left "
+          "the card")
+    sa, bwt = ss.gather_shards(sa).numpy(), ss.gather_shards(bwt).numpy()
+    if want is None:
+        t1 = time.perf_counter()
+        want_sa = native.sais(s)
+        want = (want_sa, bwt_from_sa(s, want_sa))
+        oracle = f"native SA-IS ({time.perf_counter() - t1:.2f} s host)"
+    else:
+        oracle = "suffix_array_device"
+    check(np.array_equal(sa, want[0]), f"{label}: SA differs from {oracle}")
+    check(np.array_equal(bwt, want[1]), f"{label}: BWT differs from "
+          f"{oracle}")
+    scans = {k: launches[k] for k in ("cumsum_i32",) + SHARDED_KERNELS}
+    print(f"# sharded SA {label}: {secs:.3f} s wall ({n / 1e6 / secs:.1f} "
+          f"MB/s), peak {peak / 2**20:.0f} MiB = {peak / n:.1f} B/char, "
+          f"{stats['sorts']} distributed sorts, {stats['rounds']} exchange "
+          f"rounds; scan launches {json.dumps(scans)}; sa and bwt bit-exact "
+          f"against {oracle}; before it {base / 2**30:.2f} GiB allocated, "
+          f"{free / 2**30:.2f} of {cap / 2**30:.2f} GiB free, "
+          f"{retries} allocator retries")
+    if again:
+        _, secs = wall(lambda: ss.suffix_array_sharded(s, mesh=mesh,
+                                                       impl=impl))
+        print(f"# sharded SA {label}, second run: {secs:.3f} s wall")
+    return launches
+
+
+def phase_sharded(dev):
+    """Phase 10: the sharded suffix sort and the mesh encode on virtual
+    meshes of the card, and the dry run."""
+    import numpy as np
+    import torch
+    from gecoz_tpu_torch.formats.gcz import encode_block_host
+    from gecoz_tpu_torch.ops.sa_device import suffix_array_device
+    from gecoz_tpu_torch.parallel import mesh, sharded_sa as ss
+    from gecoz_tpu_torch.parallel.dryrun import dryrun_multichip
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(31)
+    nul = np.zeros(1, np.uint8)
+    block = np.concatenate([chrom(rng, 64 * MiB - 1, 4), nul])
+    check(ss._pick_impl(block, "auto") == "runs", "64 MiB block: auto does "
+          "not pick the run-aware variant")
+    launches = sharded_run("runs 64 MiB over (cuda:0,) * 8 (auto)", block,
+                           (dev,) * 8, "auto", again=True)
+    for name in ("cumsum_i32",) + SHARDED_KERNELS:
+        check(launches[name] > 0, f"{name} was not launched by the sharded "
+              "path")
+    del block
+    acgt = np.frombuffer(b"ACGT", np.uint8)
+    dna = np.concatenate([rng.choice(acgt, size=16 * MiB - 1), nul])
+    sharded_run("kmer 16 MiB N-free over (cuda:0,) * 6 (odd-even)", dna,
+                (dev,) * 6, "kmer")
+    del dna
+    small = np.concatenate([chrom(rng, 4 * MiB - 1, 1), nul])
+    sa, bwt = suffix_array_device(small, with_bwt=True, device=dev)
+    sharded_run("4 MiB over one shard (cuda:0,)", small, (dev,), "auto",
+                want=(sa.cpu().numpy(), bwt.cpu().numpy()))
+    del sa, bwt
+    # the mesh encode with the sharded route forced (a 1-byte budget)
+    os.environ["GECOZ_HBM_BYTES"] = "1"
+    try:
+        ss.reset_stats()
+        got, secs = wall(lambda: mesh.encode_blocks(
+            [small], [["chrS"]], device=dev, mesh=(dev,) * 8))
+    finally:
+        os.environ.pop("GECOZ_HBM_BYTES", None)
+    check(ss.STATS["sorts"] > 0, "the forced mesh encode did not sort "
+          "sharded")
+    check(got == [encode_block_host(small, ["chrS"], backend="native")],
+          "the mesh encode with the sharded route differs from the host "
+          "tier")
+    print(f"# encode_blocks 4 MiB, sharded route forced over (cuda:0,) * 8: "
+          f"{secs:.3f} s, .gcz/.gcx byte-identical to the host tier")
+    _, secs = wall(lambda: dryrun_multichip((dev,) * 8))
+    print(f"# dryrun_multichip((cuda:0,) * 8): {secs:.2f} s")
+    print(f"# phase 10 (sharded suffix sort and mesh encode): "
+          f"{time.perf_counter() - t_phase:.1f} s; a virtual mesh runs every "
+          "shard on one card: no interconnect is measured")
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1233,6 +1377,9 @@ def main() -> int:
     phase_build(_build)
     err, times, lib_times = phase_kernels(scan, dev)
     phase_suffix_sort(dev)
+    # the sharded sort runs before the phases that profile and encode large
+    # blocks: after them its first run took several times as long (PERF.md)
+    shlaunches = phase_sharded(dev)
     phase_query_state(dev)
     with tempfile.TemporaryDirectory() as work:
         launches, dlaunches = phase_end_to_end(dev, work)
@@ -1244,12 +1391,12 @@ def main() -> int:
     check(not loaded, f"{loaded} were imported")
     print(f"# all phases passed in {time.perf_counter() - t_all:.1f} s")
 
-    def entry(name):
+    def entry(name, run):
         # 4 bytes a value in and out at the timed 64 Mi + 12,345 values
         ms, plain = times[(name, 64 * MiB)]
         return {"name": name, "route": "cuda",
                 "source": "gecoz_tpu_torch/csrc/scan.cu",
-                "replaces": REPLACES, "launches": launches[name],
+                "replaces": REPLACES, "launches": run[name],
                 "max_abs_err": err[name], "ms": ms, "plain_ms": plain,
                 "bound_ms": bound_ms(8 * (64 * MiB + 12345)),
                 "bound_by": "bytes",
@@ -1274,12 +1421,10 @@ def main() -> int:
             # its distinct sectors at the card's random 32-byte row rate
             out["random_read_bound_ms"] = qrr[key]
         return out
-    # cummax_i32 and cummin_rev_i32 share the kernel template but have no
-    # caller on the paths (no launch to show): checked and timed above,
-    # listed apart
-    off_path = [entry(k) for k in KERNELS if k not in PATH_KERNELS]
-    print(f"# ported, not on the paths: {json.dumps(off_path)}")
-    print(json.dumps({"kernels": [entry(k) for k in PATH_KERNELS]
+    # the scan's add and fills: launches from the CLI compress; its max and
+    # reverse min: from the sharded sort of phase 10
+    print(json.dumps({"kernels": [entry(k, launches) for k in PATH_KERNELS]
+                      + [entry(k, shlaunches) for k in SHARDED_KERNELS]
                       + [query_entry(*q) for q in QUERY_KERNELS]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -14,12 +14,13 @@ changed only), so the bytes are the reference's:
 * GecozFileReader.java:58-200 — chained header scan; sampling factor
   re-derived from total `.gcx` size (140-149).
 
-`encode_block` runs the suffix sort, BWT and wavelet bit planes on the
-device; the sampled suffix array and the serialization run on the host.
-Unlike the reference, a failed device step raises: there is no quiet host
-fallback, no `auto` probe and no packed upload.  A block whose suffix sort
-does not fit one card raises too; the sharded suffix sort is ROADMAP A9.
-`encode_block_host` is the reference's host tier, the card's oracle.
+`encode_block` is one block through the device-state route of
+`parallel/mesh.py::encode_blocks`: the suffix sort, the BWT, the sampled
+suffix array's mark bits and values and the wavelet bit planes are derived
+on the device, and the host fetches only those and serializes.  Unlike the
+reference, a failed device step raises: there is no quiet host fallback, no
+`auto` probe and no packed upload.  `encode_block_host` is the reference's
+host tier, the card's oracle.
 """
 
 from __future__ import annotations
@@ -36,11 +37,7 @@ from gecoz_tpu_torch.index.hswt import HSWT
 from gecoz_tpu_torch.index.shape import HSWTShape
 from gecoz_tpu_torch.index.ssa import SampledSAIndex, index_size
 from gecoz_tpu_torch.ops.sa import bwt_from_sa, suffix_array
-from gecoz_tpu_torch.ops.sa_device import suffix_array_device
-from gecoz_tpu_torch.ops.wavelet import build_hswt_device
-from gecoz_tpu_torch.utils import metrics
 from gecoz_tpu_torch.utils.device import device as default_device
-from gecoz_tpu_torch.utils.device import sync
 from gecoz_tpu_torch.utils.hostmem import warm_for_block
 
 REF_MAGIC = b"GecozBWT"
@@ -115,43 +112,21 @@ def parse_ssa_header(buf: bytes, offset: int) -> tuple[int, int]:
 # -- block encode ----------------------------------------------------------
 
 def _serialize(headers: list[str], n: int, shape: HSWTShape, hswt: HSWT,
-               sa: np.ndarray, sampling_rate: int) -> tuple[bytes, bytes]:
+               ssa: SampledSAIndex) -> tuple[bytes, bytes]:
     """(gcz_block, gcx_block) of one encoded block
     (GecozFileWriter.java:124-159): ref header + wavelet nodes, ssa header
     + sampled suffix array."""
-    ssa = SampledSAIndex.build(sa, sampling_rate)
     block_size = ref_header_length(headers) + shape.size
     gcz = RefBlockHeader(headers, block_size, n).write() + hswt.serialize()
     if len(gcz) != block_size:
         raise RuntimeError(f"gcz block is {len(gcz)} bytes, header says "
                            f"{block_size}")
-    sf = sampling_rate.bit_length() - 1
-    idx_size = index_size(n, sf)
+    idx_size = index_size(n, ssa.sampling_factor)
     gcx = write_ssa_header(headers, idx_size) + ssa.serialize()
     if len(gcx) != SSA_HEADER_LEN + idx_size:
         raise RuntimeError(f"gcx block is {len(gcx)} bytes, expected "
                            f"{SSA_HEADER_LEN + idx_size}")
     return gcz, gcx
-
-
-def _encode_on_device(data: np.ndarray, shape: HSWTShape,
-                      dev: torch.device, strategy: str = "sort"):
-    """SA + BWT + wavelet bit planes on `dev`; returns host (sa, hswt)."""
-    with metrics.phase("encode.suffix_sort", len(data)):
-        try:
-            sa_dev, bwt_dev = suffix_array_device(
-                data, with_bwt=True, device=dev, strategy=strategy)
-            sync(dev)
-        except torch.cuda.OutOfMemoryError as e:
-            raise MemoryError(
-                f"the suffix sort of a {len(data)}-byte block does not fit "
-                f"{dev}; blocks beyond one card wait for the sharded suffix "
-                "sort (ROADMAP A9)") from e
-    with metrics.phase("encode.wavelet", len(data)):
-        hswt = HSWT.from_packed(shape, build_hswt_device(bwt_dev, shape))
-    with metrics.phase("encode.fetch_sa", len(data)):
-        sa = sa_dev.cpu().numpy().astype(np.int64)
-    return sa, hswt
 
 
 def encode_block(data: np.ndarray, headers: list[str],
@@ -160,21 +135,12 @@ def encode_block(data: np.ndarray, headers: list[str],
                  strategy: str = "sort") -> tuple[bytes, bytes]:
     """Encode one generalized string block -> (gcz_block, gcx_block).
 
-    histogram -> shape -> suffix array + BWT + wavelet nodes (device) ->
-    sampled SA + serialization (host).  `device` defaults to the card.
+    histogram -> shape -> suffix array, BWT, sampled-SA state and wavelet
+    nodes (device) -> serialization (host).  `device` defaults to the card.
     """
-    data = np.ascontiguousarray(data, dtype=np.uint8)
-    n = len(data)
-    if n >= 1 << 31:
-        raise ValueError("blocks are capped at 2^31 bytes by the int32-SA "
-                         "contract (SAIS.java:103)")
-    dev = default_device(device)
-    warm_for_block(n)
-    counts = np.bincount(data, minlength=256).astype(np.int64)
-    shape = HSWTShape.from_counts(counts)
-    sa, hswt = _encode_on_device(data, shape, dev, strategy)
-    with metrics.phase("encode.serialize", n):
-        return _serialize(headers, n, shape, hswt, sa, sampling_rate)
+    from gecoz_tpu_torch.parallel.mesh import encode_blocks
+    return encode_blocks([data], [headers], sampling_rate, device,
+                         strategy=strategy)[0]
 
 
 def encode_block_host(data: np.ndarray, headers: list[str],
@@ -195,7 +161,8 @@ def encode_block_host(data: np.ndarray, headers: list[str],
     shape = HSWTShape.from_counts(counts)
     sa = suffix_array(data, backend=backend)
     hswt = HSWT.build(bwt_from_sa(data, sa), shape)
-    return _serialize(headers, n, shape, hswt, sa, sampling_rate)
+    return _serialize(headers, n, shape, hswt,
+                      SampledSAIndex.build(sa, sampling_rate))
 
 
 class GecozWriter:
@@ -222,6 +189,10 @@ class GecozWriter:
     def write(self, headers: list[str], data: np.ndarray) -> None:
         gcz, gcx = encode_block(data, headers, self.sampling_rate,
                                 self.device)
+        self.write_encoded(gcz, gcx)
+
+    def write_encoded(self, gcz: bytes, gcx: bytes) -> None:
+        """Append an already-encoded block (the mesh route's output)."""
         self.ref.write(gcz)
         self.ssa.write(gcx)
 

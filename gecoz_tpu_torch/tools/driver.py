@@ -1,11 +1,10 @@
 """Drivers on the card: FASTA -> .gcz/.gcx, .gcz -> FASTA, GFF3 search.
 
-Port of gecoz_tpu/tools/driver.py: `index_fasta` (26-113), one block at a
-time; `decompress` (223-365), the reference's `--backend device` route;
-and the device branch of `gff_search` (421-466).  The reference's batched
-mesh route (driver.py:71-85 -> parallel/mesh.py) is multi-GPU work
-(ROADMAP A9), and the encode's host thread pool has no counterpart: the
-card encodes one block after another.  There is no host fallback: a
+Port of gecoz_tpu/tools/driver.py: `index_fasta` (26-113) through the
+reference's device route, `_index_blocks_mesh` (116-173) into
+`parallel/mesh.py::encode_blocks` in bounded windows of blocks;
+`decompress` (223-365), the reference's `--backend device` route; and the
+device branch of `gff_search` (421-466).  There is no host fallback: a
 failure on the card raises.
 
 The host verbs, which the JAX package also runs on the host whatever its
@@ -102,10 +101,14 @@ def _run_tasks(tasks, threads: int) -> None:
 
 def index_fasta(ipath, opath, xpath=None, sampling=DEFAULT_SAMPLING_RATE,
                 resume: bool = False,
-                device: torch.device | str | None = None) -> None:
-    """FASTA -> .gcz/.gcx, encoding every block on `device` (default: the
-    card).  With resume=True, complete leading blocks of an existing output
-    pair that match the plan are kept and encoding restarts after them."""
+                device: torch.device | str | None = None,
+                mesh=None) -> None:
+    """FASTA -> .gcz/.gcx, every block encoded on `device` (default: the
+    card) through `_index_blocks_mesh`; a block beyond one card is sorted
+    sharded over `mesh` (default: every local card) when it has more than
+    one shard.  With resume=True, complete leading blocks of an existing
+    output pair that match the plan are kept and encoding restarts after
+    them."""
     t0 = time.time()
     ipath = Path(ipath)
     sequences = list(iter_fasta(ipath, lazy=True))
@@ -119,18 +122,56 @@ def index_fasta(ipath, opath, xpath=None, sampling=DEFAULT_SAMPLING_RATE,
     if skip:
         log.info("resuming after %d complete blocks", skip)
         blocks = blocks[skip:]
+
+    def read_block(block):
+        parts = []
+        with metrics.phase("index.read_fasta"):
+            for seq in block.sequences:
+                parts.append(read_sequence(ipath, seq))
+                parts.append(np.zeros(1, dtype=np.uint8))
+            return np.concatenate(parts)
+
     with GecozWriter(opath, xpath, sampling, device=device,
                      append=skip > 0) as w:
-        for block in blocks:
-            with metrics.phase("index.read_fasta"):
-                parts = []
-                for seq in block.sequences:
-                    parts.append(read_sequence(ipath, seq))
-                    parts.append(np.zeros(1, dtype=np.uint8))
-                data = np.concatenate(parts)
-            with metrics.phase("index.encode_block", len(data)):
-                w.write(block.headers, data)
+        _index_blocks_mesh(blocks, read_block, w, sampling, w.device, mesh)
     log.info("finished in %d ms", (time.time() - t0) * 1000)
+
+
+MESH_WINDOW_BYTES = 256 << 20   # text bytes batched per mesh-encode window
+MESH_WINDOW_BLOCKS = 16
+
+
+def _index_blocks_mesh(blocks, read_block, w, sampling, device,
+                       mesh=None) -> None:
+    """Encode plan blocks through `parallel/mesh.py::encode_blocks` in
+    bounded windows (at most MESH_WINDOW_BLOCKS blocks, closed once they
+    hold MESH_WINDOW_BYTES), so peak host memory is O(window), not
+    O(file)."""
+    from gecoz_tpu_torch.parallel.mesh import encode_blocks
+
+    window: list[np.ndarray] = []
+    hdrs: list[list[str]] = []
+
+    def flush() -> None:
+        if not window:
+            return
+        with metrics.phase("index.encode_mesh", sum(len(d) for d in window)):
+            encoded = encode_blocks(window, hdrs, sampling, device, mesh)
+        for gcz, gcx in encoded:
+            w.write_encoded(gcz, gcx)
+        window.clear()
+        hdrs.clear()
+
+    acc = 0
+    for block in blocks:
+        data = read_block(block)
+        window.append(data)
+        hdrs.append(block.headers)
+        acc += len(data)
+        if acc >= MESH_WINDOW_BYTES or len(window) >= MESH_WINDOW_BLOCKS:
+            flush()
+            acc = 0
+    flush()
 
 
 def decompress(ipath, opath, threads: int = 1,

@@ -46,3 +46,21 @@ def hbm_budget(dev: torch.device) -> int | None:
     free, _ = torch.cuda.mem_get_info(dev)
     return free + (torch.cuda.memory_reserved(dev)
                    - torch.cuda.memory_allocated(dev))
+
+
+# The single-card suffix sort's peak device memory per input byte, on the
+# card: `chip_smoke.py` phase 3, run T (NVIDIA H100 80GB HBM3, 700 W): the
+# sort strategy without the run-key table peaked at 203.2 B/char at 64 MiB
+# (174.2 with the table, the branch DNA takes).  The reference's 48 is a
+# TPU figure.
+SA_DEVICE_BYTES_PER_CHAR = 204
+
+
+def needs_sharded_sa(nbytes: int, dev: torch.device) -> bool:
+    """True when one block's suffix sort does not fit `dev`'s budget
+    (`hbm_budget`, which GECOZ_HBM_BYTES overrides) and must take the
+    sharded sort over a mesh (gecoz_tpu/utils/accel.py:184-191)."""
+    budget = hbm_budget(dev)
+    if budget is None:
+        return False
+    return nbytes * SA_DEVICE_BYTES_PER_CHAR > budget

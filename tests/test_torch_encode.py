@@ -186,11 +186,12 @@ def test_block_beyond_the_card_raises_memory_error(rng, monkeypatch):
     """An allocator failure in the suffix sort becomes a MemoryError that
     names the sharded suffix sort; nothing is refused before it."""
     from gecoz_tpu_torch.formats import gcz
+    from gecoz_tpu_torch.parallel import mesh
 
     def no_room(*args, **kwargs):
         raise torch.cuda.OutOfMemoryError("CUDA out of memory")
     data, _ = random_block(rng, nseq=1, minlen=100, maxlen=300)
-    monkeypatch.setattr(gcz, "suffix_array_device", no_room)
-    with pytest.raises(MemoryError, match="ROADMAP A9") as err:
+    monkeypatch.setattr(mesh, "suffix_array_device", no_room)
+    with pytest.raises(MemoryError, match="sharded suffix sort") as err:
         gcz.encode_block(data, ["a"], device="cpu")
     assert isinstance(err.value.__cause__, torch.cuda.OutOfMemoryError)

@@ -414,3 +414,42 @@ def test_decompress_and_search_on_card_equal_host_tier(cuda, gen, tmp_path):
     driver.gff_search(gcz, qf, out=a, device=cuda)
     assert a.getvalue() == b.getvalue() != ""
     assert fmsearch.LAUNCHES["fm_search"] > 0 and lfwalk.LAUNCHES["decode"] > 0
+
+
+@pytest.mark.parametrize("D", [8, 6])
+def test_sharded_sa_on_a_virtual_mesh(cuda, gen, D, monkeypatch):
+    """The sharded suffix sort over (cuda:0,) * D at 1 MiB, both impls,
+    equal to the host library's SA-IS; its shard-local scans launch the
+    scan kernel (B1, and B4/B5 on the run-aware variant), and no torch
+    scan runs on the path."""
+    from gecoz_tpu_torch import native
+    from gecoz_tpu_torch.parallel.sharded_sa import (gather_shards,
+                                                     suffix_array_sharded)
+    s = _genomic(gen, 1 << 20)
+    want = native.sais(s)
+    for name in ("cumsum", "cummax", "cummin"):
+        monkeypatch.setattr(torch, name, lambda *a, name=name, **k: (
+            _ for _ in ()).throw(AssertionError(f"torch.{name} ran")))
+    for impl in ("runs", "kmer"):
+        scan.reset_launches()
+        sa, bwt = suffix_array_sharded(s, mesh=(cuda,) * D, impl=impl)
+        assert all(x.is_cuda for x in sa + bwt)
+        assert np.array_equal(gather_shards(sa).numpy(), want), impl
+        assert np.array_equal(gather_shards(bwt).numpy(),
+                              bwt_from_sa(s, want)), impl
+        assert scan.LAUNCHES["cumsum_i32"] > 0, impl
+        if impl == "runs":
+            assert scan.LAUNCHES["cummax_i32"] > 0
+            assert scan.LAUNCHES["cummin_rev_i32"] == D
+
+
+@pytest.mark.parametrize("sf", [3, 5])
+def test_sa_state_on_card_equals_cpu(cuda, gen, sf):
+    from gecoz_tpu_torch.parallel.mesh import sa_state
+    s = _genomic(gen)
+    s[-1] = ord("C")
+    sa, bwt = suffix_array_device(s, with_bwt=True, device=cuda)
+    got = sa_state(sa, bwt, int(s[-1]), sf)
+    want = sa_state(sa.cpu(), bwt.cpu(), int(s[-1]), sf)
+    for g, w in zip(got, want):
+        assert g.is_cuda and torch.equal(g.cpu(), w)

@@ -83,3 +83,11 @@ def test_every_module_imports_with_both_refused(tmp_path):
     assert proc.returncode == 0, proc.stderr
     count = int(proc.stdout.split("IMPORTED")[1])
     assert count == len(MODULES) - 1                 # minus __init__
+
+
+def test_the_walk_covers_the_parallel_modules():
+    """The mesh route, the sharded sort and the dry run are among the
+    modules both checks walk."""
+    names = {str(p.relative_to(PORT)) for p in MODULES}
+    assert {"parallel/__init__.py", "parallel/mesh.py",
+            "parallel/sharded_sa.py", "parallel/dryrun.py"} <= names
