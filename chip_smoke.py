@@ -21,14 +21,20 @@ Phases (any mismatch or exception exits non-zero):
 4. the query-state build (`index_block`) against the port's plain path on
    the CPU, field by field, and its time at 4 MiB and 64 MiB;
 5. end to end: a seeded FASTA with a 64 MiB chromosome-class block through
-   `python -m gecoz_tpu_torch.cli` (the mesh route: `encode_blocks`, its
-   phase walls and the bytes the host fetched per block), the .gcz/.gcx
-   bytes held against the host tier's (`encode_block_host`: SA-IS, BWT and
-   wavelet fill on the host), then decompressed by the port's CLI on the card and held byte
-   for byte against the host FM-index's own decode of every block,
-   formatted by the FASTA writer, and by md5 per record against the input;
+   `python -m gecoz_tpu_torch.cli` (the device tier, `--backend auto`: the
+   mesh route, `encode_blocks`, its phase walls and the bytes the host
+   fetched per block), the .gcz/.gcx bytes held against the CLI's host
+   tier (`--backend native -t 4`: SA-IS, BWT and wavelet fill on the host,
+   blocks on a pool), then decompressed by the port's CLI on the card and
+   held byte for byte against the CLI's host tier (`--backend native -t
+   4`, the host FM-index's walks) and by md5 per record against the input;
    the first decode launch timed apart; the card's busy share of one
-   64 MiB block's decompress under torch.profiler;
+   64 MiB block's decompress under torch.profiler; the same FASTA written
+   as BGZF by the port's `GzipFileWriter` and as one gzip member by its
+   `gzip_compress` (both through the host library's deflate), each
+   compressed by the CLI to the same files; a gzip input with trailing
+   zero bytes, and one cut inside its deflate data, refused by the CLI
+   (exit code non-zero, no .gcz);
 6. the scan launches the compress run made, the LF-walk launches of the
    decompress run;
 7. two blocks of hg38's chr1 and chr2 lengths in a row through the CLI,
@@ -45,13 +51,14 @@ Phases (any mismatch or exception exits non-zero):
    32-byte sectors each search reads in both layouts (a plain replay of
    the search) and the random-read bound those sectors give at the card's
    rate for random 32-byte rows; each beside its bytes bound;
-9. GFF3 search of 1,000 reads through the port's CLI, byte for byte
-   against the host FM-index (`FMIndex.find` per read and strand, rows
-   written by the GFF3 row writer), at the default memory budget (locate
-   table) and at a budget forced low (LF walks); count and locate against
-   what a plain byte search of the genome gives, written as the verbs write
-   it (byte for byte), range extract against the genome's bytes; the card's busy share of one 64 MiB block's search under
-   torch.profiler;
+9. GFF3 search of 1,000 reads through the port's CLI on the card, byte for
+   byte against the CLI's host tier (`--backend numpy`: `FMIndex.find` per
+   read and strand; the two share the row emission, which the CPU tests
+   hold against the reference CLI), at the default memory budget (locate
+   table) and at a budget forced low (LF walks); count and locate against what a plain
+   byte search of the genome gives, written as the verbs write it (byte
+   for byte), range extract against the genome's bytes; the card's busy
+   share of one 64 MiB block's search under torch.profiler;
 10. (run after phase 3) the sharded suffix sort and the mesh encode on
     virtual meshes of the card: a 64 MiB chromosome-like block with N runs
     over (cuda:0,) * 8 (auto: the run-aware variant; the path of the scan's max and reverse-min
@@ -62,7 +69,14 @@ Phases (any mismatch or exception exits non-zero):
     encoded through `encode_blocks` with the sharded route forced, against
     the host tier; the dry run (`dryrun_multichip`) over (cuda:0,) * 8.
     Wall time, peak device memory per char, the distributed sorts and
-    exchange rounds, and the scan launches of each.
+    exchange rounds, and the scan launches of each;
+11. the tools: a compress of a 4 MiB FASTA through the CLI in process
+    inside `metrics.profiler_trace()` (GECOZ_TRACE_DIR set), the trace
+    file holding the `mesh.sa` phase and the scan kernel, its size and
+    the card's busy share over the traced window; `entry()` on the card
+    against `entry("cpu")`; `tools.validate_scale --cli --profile genome
+    --mb 32` and `tools.probe_sharded_scale --mb 16` as processes of their
+    own, each printing its PASSED line.  The total time is printed last.
 
 The port stands alone: an import hook refuses JAX and gecoz_tpu, and the
 oracles are the port's host copies (tests/test_torch_host_copies.py holds
@@ -247,7 +261,8 @@ def phase_build(build):
     check(native.available(), f"the host library did not load: "
           f"{native.error()}")
     print(f"# host library loaded: {build.BUILDS['gecoz_host'].path.name} "
-          "(SA-IS, BWT, rank vectors, LF walks, wavelet fill)")
+          "(SA-IS, BWT, rank vectors, LF walks, wavelet fill, inflate, "
+          "deflate, LPF)")
     for name, mod in (("scan", scan), ("fm_search", fmsearch),
                       ("lf_walk", lfwalk)):
         print(f"# {name} kernels loaded in {mod.INIT_SECONDS * 1e3:.1f} ms "
@@ -473,10 +488,22 @@ def phase_query_state(dev):
     return out
 
 
+def busy_us(intervals) -> float:
+    """The card's busy time: the length of the union of the kernels'
+    (start, end) intervals, so kernels that overlap count once.  Every
+    busy share the smoke prints is this over a wall time."""
+    busy, end = 0.0, float("-inf")
+    for a, b in sorted(intervals):
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    return busy
+
+
 def profile_busy(fn, what: str, ours=("scan_onepass",)) -> None:
-    """Device kernel time by kernel name under torch.profiler, and its sum
-    against the wall time of the same (profiled) run; `ours` names the
-    hand-written kernels to total apart."""
+    """Device kernel time by kernel name under torch.profiler, and the
+    card's busy time (`busy_us`) against the wall time of the same
+    (profiled) run; `ours` names the hand-written kernels to total apart."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -488,15 +515,17 @@ def profile_busy(fn, what: str, ours=("scan_onepass",)) -> None:
         torch.cuda.synchronize()
         secs = time.perf_counter() - t0
     by_name: dict[str, list] = {}
+    spans = []
     for e in prof.events():
         if e.device_type == DeviceType.CUDA:
             row = by_name.setdefault(e.name, [0.0, 0])
             row[0] += e.time_range.elapsed_us() / 1e3
             row[1] += 1
+            spans.append((e.time_range.start, e.time_range.end))
     if not by_name:
         print(f"# profile {what}: no device time recorded (not measured)")
         return
-    busy = sum(r[0] for r in by_name.values())
+    busy = busy_us(spans) / 1e3
     mine = [r for k, r in by_name.items() if any(f in k for f in ours)]
     print(f"# profile {what}: kernels busy {busy:.1f} ms of "
           f"{secs * 1e3:.1f} ms wall under the profiler "
@@ -547,40 +576,6 @@ def make_genome(seed: int = 5):
         recs.append((f"contig{i}", chrom(rng, int(rng.integers(2000, 60000)),
                                          0)))
     return recs
-
-
-def host_index_fasta(fa, gcz):
-    """The host tier's compress of a FASTA (the block plan, then
-    `encode_block_host` per block: SA-IS, BWT and wavelet fill on the
-    host), written as the CLI writes it."""
-    import numpy as np
-    from gecoz_tpu_torch.formats.fasta import iter_fasta, read_sequence
-    from gecoz_tpu_torch.formats.gcz import encode_block_host
-    from gecoz_tpu_torch.tools.blocks import plan_blocks
-    with open(gcz, "wb") as ref, open(gcz[:-3] + "gcx", "wb") as ssa:
-        for block in plan_blocks(list(iter_fasta(fa, lazy=True))):
-            data = np.concatenate([x for seq in block.sequences for x in (
-                read_sequence(fa, seq), np.zeros(1, np.uint8))])
-            a, b = encode_block_host(data, block.headers, backend="native")
-            ref.write(a)
-            ssa.write(b)
-
-
-def host_fasta(gcz) -> bytes:
-    """What decompressing `gcz` must write: every block decoded by the host
-    FM-index (the host library's LF walks), each record formatted by the
-    FASTA writer, blocks in file order."""
-    from gecoz_tpu_torch.formats.fasta import format_fasta_record
-    from gecoz_tpu_torch.formats.gcz import GecozReader
-    reader = GecozReader(gcz)
-    out = []
-    for bh in reader.headers:
-        fm = reader.read(bh)
-        text = fm.decode_text()
-        for i, h in enumerate(bh.headers):
-            b, t = fm.seq_bounds(i)
-            out.append(format_fasta_record(h, text[b:t]))
-    return b"".join(out)
 
 
 @contextlib.contextmanager
@@ -645,9 +640,11 @@ def phase_end_to_end(dev, workdir):
 
     host_gcz = os.path.join(workdir, "host.gcz")
     t0 = time.perf_counter()
-    host_index_fasta(fa, host_gcz)
-    print(f"# host tier (encode_block_host, native) compress: "
-          f"{time.perf_counter() - t0:.2f} s")
+    rc = cli.main(["-i", fa, "-o", host_gcz, "--backend", "native", "-t",
+                   "4"])
+    check(rc == 0, f"port CLI --backend native compress exit code {rc}")
+    print(f"# port CLI --backend native -t 4 compress (the host tier: "
+          f"encode_block_host on 4 workers): {time.perf_counter() - t0:.2f} s")
     for ext in ("gcz", "gcx"):
         a = open(port_gcz[:-3] + ext, "rb").read()
         b = open(host_gcz[:-3] + ext, "rb").read()
@@ -655,11 +652,6 @@ def phase_end_to_end(dev, workdir):
               f"({len(a)} vs {len(b)} bytes)")
         print(f"# .{ext}: {len(a)} bytes, byte-identical to the host tier "
               f"(md5 {hashlib.md5(a).hexdigest()})")
-
-    t0 = time.perf_counter()
-    want_fa = host_fasta(port_gcz)
-    print(f"# host decode (FMIndex.decode_text per block, FASTA writer): "
-          f"{time.perf_counter() - t0:.2f} s")
     for name in PATH_KERNELS:
         check(launches[name] > 0, f"{name} was not launched by the path")
     print(f"# launches during the compress run: {json.dumps(launches)}")
@@ -678,16 +670,25 @@ def phase_end_to_end(dev, workdir):
     secs = time.perf_counter() - t0
     dlaunches = counts()                      # ... and ends here
     check(rc == 0, f"port CLI decompress exit code {rc}")
+    back_host = os.path.join(workdir, "back_host.fa")
+    t0 = time.perf_counter()
+    rc = cli.main(["-i", port_gcz, "-o", back_host, "--backend", "native",
+                   "-t", "4"])
+    check(rc == 0, f"port CLI --backend native decompress exit code {rc}")
+    print(f"# port CLI --backend native -t 4 decompress (the host tier: the "
+          f"host FM-index's walks on 4 workers): "
+          f"{time.perf_counter() - t0:.2f} s")
     a = open(back_port, "rb").read()
-    check(a == want_fa, "the port's decompress differs from the host "
-          "FM-index's decode")
+    check(a == open(back_host, "rb").read(), "the port's decompress on the "
+          "card differs from its host tier's")
+    os.unlink(back_host)
     check(md5_records(back_port) == want_md5, "decompressed records differ "
           "from the input")
     check(dlaunches["lf_walk.decode"] > 0, "lf_walk.decode was not "
           "launched by the decompress path")
     print(f"# port CLI decompress: {secs:.2f} s -> {total / 1e6 / secs:.2f} "
           f"MB/s end to end, {len(a)} bytes byte-identical to the host "
-          f"decode (md5 {hashlib.md5(a).hexdigest()}), md5 equal to the "
+          f"tier's (md5 {hashlib.md5(a).hexdigest()}), md5 equal to the "
           f"input for all {len(want_md5)} records; peak device memory "
           f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB")
     print_phases("decode.")
@@ -697,7 +698,7 @@ def phase_end_to_end(dev, workdir):
           f"decode.walk {metrics.stats()['decode.walk'].seconds * 1e3:.1f} ms "
           f"over {metrics.stats()['decode.walk'].calls} blocks")
     print(f"# launches during the decompress run: {json.dumps(dlaunches)}")
-    del a, want_fa
+    del a
 
     from gecoz_tpu_torch.formats.gcz import GecozReader
     from gecoz_tpu_torch.tools import driver
@@ -770,6 +771,176 @@ def phase_two_large_blocks(dev, workdir):
           f"records; peak device memory {peak / 2**30:.2f} GiB = "
           f"{peak / 248_956_423:.1f} B/char of the chr1 block")
     print_phases("decode.")
+
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+
+
+def run_module(argv, timeout: int):
+    """`python -m <argv>` from the checkout's root, waited for; returns
+    (exit code, standard output, standard error)."""
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    proc = subprocess.run([sys.executable, "-m", *argv], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=timeout)
+    return proc.returncode, proc.stdout, proc.stderr
+
+
+def phase_gzip(dev, workdir, fa, port_gcz):
+    """Phase 5's FASTA as BGZF (`GzipFileWriter`) and as one gzip member
+    (`gzip_compress`), both by the port's codec with the host library's
+    hash-chain deflate, each compressed by the CLI on the card to the
+    plain FASTA's files; a gzip input with trailing zero bytes, and one
+    cut inside its deflate data, refused."""
+    import concurrent.futures as cf
+    from gecoz_tpu_torch import cli
+    from gecoz_tpu_torch.codec.gzip_file import GzipFileWriter, gzip_compress
+    from gecoz_tpu_torch.formats import fasta
+    raw = open(fa, "rb").read()
+    bgzf, gz = fa + ".bgzf.gz", fa + ".gz"
+
+    def write_bgzf():
+        with GzipFileWriter(bgzf, bgzf=True, matcher="native") as w:
+            for i in range(0, len(raw), MiB):
+                w.write(raw[i:i + MiB])
+
+    def write_gz():
+        with open(gz, "wb") as f:
+            f.write(gzip_compress(raw, matcher="native"))
+    t0 = time.perf_counter()
+    with cf.ThreadPoolExecutor(max_workers=2) as pool:
+        for fut in [pool.submit(write_bgzf), pool.submit(write_gz)]:
+            fut.result()
+    print(f"# gzip: the {len(raw)}-byte FASTA written as BGZF "
+          f"({os.path.getsize(bgzf)} bytes, GzipFileWriter) and as one gzip "
+          f"member ({os.path.getsize(gz)} bytes, gzip_compress) on two "
+          f"threads: {time.perf_counter() - t0:.2f} s")
+    del raw
+    want = {ext: open(port_gcz[:-3] + ext, "rb").read()
+            for ext in ("gcz", "gcx")}
+    for label, path in (("BGZF", bgzf), ("gzip", gz)):
+        out = os.path.join(workdir, f"from_{label.lower()}.gcz")
+        t0 = time.perf_counter()
+        rc = cli.main(["-i", path, "-o", out, "--device", str(dev)])
+        check(rc == 0, f"port CLI compress of the {label} FASTA: exit code "
+              f"{rc}")
+        for ext in ("gcz", "gcx"):
+            check(open(out[:-3] + ext, "rb").read() == want[ext],
+                  f"the {label} FASTA's .{ext} differs from the plain "
+                  "FASTA's")
+            os.unlink(out[:-3] + ext)
+        print(f"# port CLI compress of the {label} FASTA (inflated by the "
+              f"port's GzipFileReader): {time.perf_counter() - t0:.2f} s, "
+              ".gcz/.gcx byte-identical to the plain FASTA's")
+        os.unlink(path)
+    fasta._cleanup_inflated()
+    with open(fa, "rb") as f:
+        head = gzip_compress(f.read(MiB), matcher="native")
+    bad = {"16 trailing zero bytes": (gzip_compress(
+        b">chrA\nACGTACGTNNACGT\n>chrB\nTTGGCCAA\n") + b"\0" * 16,
+        "invalid gzip header"),
+        "its one member cut inside the deflate data": (
+            head[:len(head) // 2], "truncated deflate stream")}
+    for i, (what, (blob, why)) in enumerate(bad.items()):
+        src, out = (os.path.join(workdir, f"bad{i}.fa.gz"),
+                    os.path.join(workdir, f"bad{i}.gcz"))
+        with open(src, "wb") as f:
+            f.write(blob)
+        rc, _, err = run_module(["gecoz_tpu_torch.cli", "-i", src, "-o", out,
+                                 "--device", str(dev)], 120)
+        check(rc != 0 and not os.path.exists(out), f"the CLI took a gzip "
+              f"input with {what}")
+        check(why in err, f"the CLI refused the gzip input with {what} for "
+              f"another reason: {err[-300:]}")
+        print(f"# a gzipped FASTA with {what}: the CLI exits {rc} with "
+              f"'{why}', no .gcz written")
+
+
+def trace_report(path) -> None:
+    """The Chrome trace of `metrics.profiler_trace`: its size, the phase
+    spans it holds, and the card's busy share (`busy_us`) over the traced
+    window."""
+    with open(path) as f:
+        events = [e for e in json.load(f)["traceEvents"]
+                  if e.get("ph") == "X" and "dur" in e]
+    names = {e["name"] for e in events}
+    check("mesh.sa" in names, "the trace holds no mesh.sa span")
+    kernels = [(float(e["ts"]), float(e["ts"]) + float(e["dur"]))
+               for e in events if e.get("cat") == "kernel"]
+    check(any("scan_onepass" in e["name"] for e in events
+              if e.get("cat") == "kernel"), "the trace holds no scan kernel")
+    lo = min(float(e["ts"]) for e in events)
+    hi = max(float(e["ts"]) + float(e["dur"]) for e in events)
+    busy = busy_us(kernels)
+    print(f"# trace {os.path.basename(path)}: {os.path.getsize(path)} bytes,"
+          f" {len(events)} spans, {len(kernels)} kernels; the card busy "
+          f"{busy / 1e3:.1f} ms of the {(hi - lo) / 1e3:.1f} ms traced "
+          f"({100 * busy / (hi - lo):.1f}%)")
+    spans = {}
+    for e in events:
+        if e.get("cat") == "user_annotation" and "." in e["name"]:
+            spans[e["name"]] = spans.get(e["name"], 0.0) + float(e["dur"])
+    for name, us in sorted(spans.items(), key=lambda kv: -kv[1]):
+        print(f"#   span {name}: {us / 1e3:.1f} ms")
+
+
+def phase_tools(dev, workdir):
+    """Phase 11: a traced CLI compress, entry() on the card, and the two
+    scale tools at a small size as processes of their own."""
+    import numpy as np
+    import torch
+    from gecoz_tpu_torch import cli
+    from gecoz_tpu_torch.entry import entry
+    from gecoz_tpu_torch.utils import metrics
+    t_phase = time.perf_counter()
+    fa = os.path.join(workdir, "trace.fa")
+    write_fasta(fa, [("chrT", chrom(np.random.default_rng(37), 4 * MiB, 2))])
+    os.environ["GECOZ_TRACE_DIR"] = os.path.join(workdir, "trace")
+    try:
+        t0 = time.perf_counter()
+        with metrics.profiler_trace() as path:
+            rc = cli.main(["-i", fa, "-o", os.path.join(workdir, "trace.gcz"),
+                           "--device", str(dev)])
+            torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+    finally:
+        os.environ.pop("GECOZ_TRACE_DIR", None)
+    check(rc == 0, f"traced CLI compress exit code {rc}")
+    check(os.path.isfile(path), "profiler_trace wrote no trace")
+    print(f"# traced port CLI compress of 4 MiB: {secs:.2f} s with the "
+          "profiler (trace written on exit)")
+    trace_report(path)
+
+    fn, args = entry()
+    check(all(a.device == dev for a in args), "entry() is not on the card")
+    got, secs = wall(lambda: fn(*args))
+    cpu_fn, cpu_args = entry(device="cpu")
+    want = cpu_fn(*cpu_args)
+    for name, g, w in zip(("sp", "ep", "located", "text"), got, want):
+        check(g.is_cuda and torch.equal(g.cpu(), w), f"entry() {name} on "
+              "the card differs from the CPU")
+    print(f"# entry(): index_and_query of the example block on the card in "
+          f"{secs * 1e3:.1f} ms, every output equal to entry('cpu')'s")
+
+    torch.cuda.empty_cache()
+    for argv, passed, timeout in (
+            (["gecoz_tpu_torch.tools.validate_scale", "--cli", "--profile",
+              "genome", "--mb", "32", "--out", os.path.join(workdir,
+                                                             "scale")],
+             "LARGE-SCALE CHECK PASSED", 600),
+            (["gecoz_tpu_torch.tools.probe_sharded_scale", "--mb", "16"],
+             "SHARDED-SCALE PASSED", 300)):
+        t0 = time.perf_counter()
+        rc, out, err = run_module(argv, timeout)
+        secs = time.perf_counter() - t0
+        for line in out.splitlines():
+            if not line.startswith(("+", "block [")):
+                print(f"#   {line}")
+        check(rc == 0 and passed in out, f"{' '.join(argv)}: exit code {rc}"
+              f"\n{err[-2000:]}")
+        print(f"# python -m {' '.join(argv[:1] + argv[1:4])}...: {passed} "
+              f"in {secs:.1f} s")
+    print(f"# phase 11 (trace, entry, scale tools): "
+          f"{time.perf_counter() - t_phase:.1f} s")
 
 
 def design_sweep(key, variants, want, reps, nbytes):
@@ -1100,38 +1271,6 @@ def cli_out(main, argv) -> str:
     return buf.getvalue()
 
 
-def host_gff(gcz, qf) -> str:
-    """GFF3 rows of a query FASTA by the host FM-index: `FMIndex.find` of
-    every read and its reverse complement in every block, rows in the
-    reference's order (read, strand, block, sequence), written by the GFF3
-    row writer."""
-    from gecoz_tpu_torch.formats.fasta import iter_fasta
-    from gecoz_tpu_torch.formats.gcz import GecozReader
-    from gecoz_tpu_torch.tools.driver import _COMPLEMENT, _gff_row
-    queries = []
-    for q in iter_fasta(qf):
-        fwd = bytes(q.data).replace(b"U", b"T")
-        queries.append((q.header, fwd, fwd[::-1].translate(_COMPLEMENT)))
-    reader = GecozReader(gcz)
-    results = []
-    for bh in reader.headers:
-        fm = reader.read(bh)
-        per = {}
-        for qi, (_, fwd, rev) in enumerate(queries):
-            per[2 * qi], per[2 * qi + 1] = fm.find(fwd), fm.find(rev)
-        results.append((bh.headers, per))
-        del fm
-    out = io.StringIO()
-    for qi, (header, fwd, _) in enumerate(queries):
-        for si, reverse in ((2 * qi, False), (2 * qi + 1, True)):
-            for seq_headers, per in results:
-                for i, hits in sorted(per[si].items()):
-                    for p in hits:
-                        _gff_row(out, seq_headers[i], int(p), len(fwd),
-                                 reverse, header)
-    return out.getvalue()
-
-
 def occurrences(seq: bytes, pat: bytes) -> list[int]:
     """Every start of `pat` in `seq`, overlapping ones included."""
     out, i = [], seq.find(pat)
@@ -1159,8 +1298,14 @@ def match_text(gcz, hits, header=None, positions=True) -> str:
 
 
 def phase_search(dev, workdir, port_gcz):
-    """Phase 9: GFF3 search through the port's CLI against the host
-    FM-index; count, locate and extract against the genome itself."""
+    """Phase 9: GFF3 search through the port's CLI on the card against its
+    host tier; count, locate and extract against the genome itself.
+
+    Both tiers share `driver.gff_search`'s query parsing, reverse
+    complement, row order and `_gff_row`; only the per-block find differs.
+    So the host tier checks the card's search and locate results; the rows
+    as emitted are held against the reference CLI's on the CPU
+    (tests/test_torch_backend.py)."""
     import numpy as np
     import torch
     from gecoz_tpu_torch import cli
@@ -1171,10 +1316,10 @@ def phase_search(dev, workdir, port_gcz):
     pat = make_queries(np.random.default_rng(29), qf)
     nblocks = len(GecozReader(port_gcz).headers)
     t0 = time.perf_counter()
-    want = host_gff(port_gcz, qf)
-    print(f"# host FM-index GFF3 rows (FMIndex.find, 2000 patterns x "
-          f"{nblocks} blocks): {time.perf_counter() - t0:.2f} s, "
-          f"{want.count(chr(10))} rows")
+    want = cli_out(cli.main, ["-i", port_gcz, "-s", qf, "--backend", "numpy"])
+    print(f"# port CLI -s queries.fa --backend numpy (the host tier: "
+          f"FMIndex.find, 2000 patterns x {nblocks} blocks): "
+          f"{time.perf_counter() - t0:.2f} s, {want.count(chr(10))} rows")
     launches = {}
     for label, budget in (("default budget", None), ("budget 1 B", "1")):
         if budget:
@@ -1189,12 +1334,12 @@ def phase_search(dev, workdir, port_gcz):
         launches[label] = counts()            # ... and ends here
         os.environ.pop("GECOZ_HBM_BYTES", None)
         check(got == want, f"GFF3 rows ({label}) differ from the host "
-              "FM-index's")
+              "tier's")
         st = metrics.stats()
         q = 2000 * nblocks
         card = st["search.batch"].seconds + st["search.locate"].seconds
         print(f"# port CLI -s queries.fa ({label}): {secs:.2f} s, "
-              f"{len(got)} bytes byte-identical to the host FM-index's; "
+              f"{len(got)} bytes byte-identical to the host tier's; "
               f"{q} pattern-block searches, {q / card:.0f} queries/s over "
               f"search.batch + search.locate")
         print_phases("search.")
@@ -1385,11 +1530,15 @@ def main() -> int:
         launches, dlaunches = phase_end_to_end(dev, work)
         with tempfile.TemporaryDirectory() as large:
             phase_two_large_blocks(dev, large)
+        phase_gzip(dev, work, os.path.join(work, "genome.fa"),
+                   os.path.join(work, "port.gcz"))
         qerr, qtimes, qbounds, qrr = phase_query_kernels(dev)
         slaunches = phase_search(dev, work, os.path.join(work, "port.gcz"))
+        phase_tools(dev, work)
     loaded = [m for m in sys.modules if m.split(".")[0] in REFUSED]
     check(not loaded, f"{loaded} were imported")
-    print(f"# all phases passed in {time.perf_counter() - t_all:.1f} s")
+    print(f"# all phases passed; total time {time.perf_counter() - t_all:.1f}"
+          " s (the build included)")
 
     def entry(name, run):
         # 4 bytes a value in and out at the timed 64 Mi + 12,345 values

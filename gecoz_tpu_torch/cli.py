@@ -5,24 +5,31 @@
                                   [-s [header] PATTERN | -s query.fa]
                                   [-t N] [-v LEVEL] [-idx path.gcx]
                                   [--resume] [--sampling N] [--check [--deep]]
+                                  [--backend auto|numpy|native|device]
                                   [--device cuda:0|cpu]
 
 Flags are parsed as the reference CLI parses them (`parse_args`, a copy of
 gecoz_tpu/cli.py's, Gecotools.java:209-243), and every verb of the
-reference is served:
+reference is served.  `--backend` picks the tier of the three card verbs,
+compress/index (`-i x.fa -o x.gcz`), decompress (`-i x.gcz -o x.fa`) and
+GFF3 batch search (`-i x.gcz -s queries.fa`), as the reference passes it
+(`utils/device.py::resolve_backend`):
 
-* on the card (`--device` names another device, e.g. `cpu` for the plain
-  PyTorch versions; without a card and without `--device` these exit
-  non-zero): compress/index (`-i x.fa -o x.gcz`), decompress (`-i x.gcz
-  -o x.fa`, `-t N` reflow threads) and GFF3 batch search (`-i x.gcz -s
-  queries.fa`);
-* on the host, as the reference runs them with every backend (the port's
-  copies in `tools/driver.py`: `FMIndex.find`/`extract` on the wavelet
-  tree): count (`-c [header] PATTERN`), locate (`-s header PATTERN` or
-  `-s PATTERN`), range extract (`-o chr.seq chrN [from [to]]`) and
-  `--check [--deep]`.
+* `auto` (the default) and `device`: the device tier, on the card
+  (`--device` names another device, e.g. `cpu` for the plain PyTorch
+  versions).  Without a card and without `--device` these exit non-zero;
+  there is no host fallback.  The reference's `auto` weighs the device
+  against the host with a relay cost model the port does not carry.
+* `numpy` and `native`: the reference's host tier (host suffix array,
+  FM-index decode and find, on `-t N` threads for compress and
+  decompress); nothing runs on a device.
 
-`--backend` is the reference's tier switch and is refused here.
+Count (`-c [header] PATTERN`), locate (`-s header PATTERN` or `-s
+PATTERN`), range extract (`-o chr.seq chrN [from [to]]`) and `--check
+[--deep]` run on the host whatever the backend, as the reference runs them
+(the port's copies in `tools/driver.py`).  The reference CLI re-executes
+itself once with glibc's malloc tuned (gecoz_tpu/cli.py:26-46); the port's
+does not.
 """
 
 from __future__ import annotations
@@ -48,17 +55,6 @@ def parse_args(argv: list[str]) -> dict[str, list[str]]:
         elif values is not None:
             values.append(arg)
     return params
-
-
-def _device(name: str | None):
-    """The device of the card verbs, or None (reported) when there is no
-    card and none was named."""
-    from gecoz_tpu_torch.utils.device import device
-    try:
-        return device(name)
-    except RuntimeError as ex:
-        print(f"gecoz_tpu_torch: {ex}", file=sys.stderr)
-        return None
 
 
 def main(argv: list[str] | None = None) -> int:
@@ -87,11 +83,26 @@ def main(argv: list[str] | None = None) -> int:
     logging.basicConfig(level=getattr(logging, name, logging.WARNING),
                         format="%(message)s")
 
-    if "--backend" in params:
-        print("gecoz_tpu_torch: --backend is not taken; the port runs on "
-              "--device", file=sys.stderr)
+    from gecoz_tpu_torch.utils.device import NoDeviceError, resolve_backend
+    backend = (params.get("--backend") or ["auto"])[0]
+    try:
+        resolve_backend(backend)    # tools/driver.py resolves it again
+    except ValueError as ex:
+        print(f"gecoz_tpu_torch: {ex}", file=sys.stderr)
+        return 1
+    try:
+        return _run(params, backend, device)
+    except NoDeviceError as ex:
+        print(f"gecoz_tpu_torch: {ex}.  --backend auto and device run on "
+              "the card; --backend native (or numpy) runs the host tier, "
+              "--device cpu the plain PyTorch versions", file=sys.stderr)
         return 1
 
+
+def _run(params: dict[str, list[str]], backend: str,
+         device: str | None) -> int:
+    """One verb; `tools/driver.py` picks the tier and the device (and
+    raises NoDeviceError before it opens any file)."""
     inp = params.get("-i") or params.get("--input")
     if not inp:
         print("no input file specified", file=sys.stderr)
@@ -122,26 +133,23 @@ def main(argv: list[str] | None = None) -> int:
             end = int(out[3]) if len(out) > 3 else None
             driver.extract_range(ipath, out[1], start, end, opath)
             return 0
-        dev = _device(device)
-        if dev is None:
-            return 1
         if check_format(ipath):
-            driver.decompress(ipath, opath, threads=threads, device=dev)
+            driver.decompress(ipath, opath, backend=backend, threads=threads,
+                              device=device)
         else:
             idx = params.get("-idx") or params.get("--index")
             driver.index_fasta(ipath, opath, Path(idx[0]) if idx else None,
-                               sampling=sampling,
-                               resume="--resume" in params, device=dev)
+                               sampling=sampling, backend=backend,
+                               threads=threads, resume="--resume" in params,
+                               device=device)
     elif "-s" in params or "--search" in params:
         search = params.get("-s") or params.get("--search")
         if not search:
             print("no search string/filename specified.", file=sys.stderr)
             return 1
         if len(search) == 1 and Path(search[0]).is_file():
-            dev = _device(device)
-            if dev is None:
-                return 1
-            driver.gff_search(ipath, Path(search[0]), device=dev)
+            driver.gff_search(ipath, Path(search[0]), backend=backend,
+                              device=device)
         else:
             header = search[0] if len(search) > 1 else None
             pattern = search[1] if len(search) > 1 else search[0]

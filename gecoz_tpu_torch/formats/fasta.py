@@ -1,9 +1,11 @@
 """FASTA / FASTQ reading and FASTA writing.
 
-The port's copy of gecoz_tpu/formats/fasta.py: the same code, its gzip and
-BGZF input inflated by Python's `gzip` (multi-member, CRC-checked) where the
-reference runs its own inflater (gecoz_tpu/codec/gzip_file.py); the port
-writes no gzip.
+The port's copy of gecoz_tpu/formats/fasta.py (imports changed only): gzip
+and BGZF input is inflated by the port's copy of the reference's codec
+(`codec/gzip_file.py::GzipFileReader`, the host library's streaming
+inflate), which refuses what the reference refuses, and also a member cut
+inside its deflate data, which the reference reads without end (ROADMAP
+C2).
 
 Matches the reference's parsing semantics (nova-formats fasta/
 FastaIterator.java:28-137): records start at '>' or '@', FASTQ quality
@@ -69,8 +71,7 @@ def _inflated_path(path: Path) -> str:
     tmp = _INFLATED_CACHE.get(key)
     if tmp is not None and Path(tmp).is_file():
         return tmp
-    import gzip
-    import shutil
+    from gecoz_tpu_torch.codec.gzip_file import GzipFileReader
     if not _INFLATED_CACHE:
         atexit.register(_cleanup_inflated)
     while len(_INFLATED_CACHE) >= _CACHE_LIMIT:
@@ -81,8 +82,8 @@ def _inflated_path(path: Path) -> str:
             pass
     f = tempfile.NamedTemporaryFile(prefix="gecoz_inflated_", delete=False)
     try:
-        with gzip.open(path, "rb") as gz:
-            shutil.copyfileobj(gz, f, 1 << 20)   # streaming, bounded memory
+        with GzipFileReader(path) as gz:
+            gz.inflate_to(f)        # streaming: bounded memory both sides
         f.close()
     except BaseException:
         f.close()

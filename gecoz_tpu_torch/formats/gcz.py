@@ -37,7 +37,6 @@ from gecoz_tpu_torch.index.hswt import HSWT
 from gecoz_tpu_torch.index.shape import HSWTShape
 from gecoz_tpu_torch.index.ssa import SampledSAIndex, index_size
 from gecoz_tpu_torch.ops.sa import bwt_from_sa, suffix_array
-from gecoz_tpu_torch.utils.device import device as default_device
 from gecoz_tpu_torch.utils.hostmem import warm_for_block
 
 REF_MAGIC = b"GecozBWT"
@@ -176,7 +175,7 @@ class GecozWriter:
         ref_path = Path(ref_path)
         if ssa_path is None:
             ssa_path = default_gcx_path(ref_path)
-        self.device = default_device(device)
+        self.device = device            # of `write` (default: the card)
         self.sampling_rate = sampling_rate
         mode = "ab" if append else "wb"
         self.ref = open(ref_path, mode)

@@ -4,7 +4,8 @@ of `gecoz_tpu_torch/csrc` and the host C++ of `csrc/host`.
 Each `csrc/<name>.cu` is compiled by `nvcc` for Hopper (sm_90a) into a
 shared library with a plain C interface and loaded with ctypes (`load`).
 The host sources `csrc/host/*.cpp` (SA-IS, BWT, rank-vector layout, LF
-build and walks, wavelet fill) are compiled by `g++` into one library
+build and walks, wavelet fill, inflate, deflate and the longest previous
+factor) are compiled by `g++` into one library
 (`load_host`, bound in `gecoz_tpu_torch/native.py`).  Builds happen on
 first use, never at import: a machine without `nvcc` can import every
 module and run the plain PyTorch versions.

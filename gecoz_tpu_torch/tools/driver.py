@@ -1,11 +1,19 @@
-"""Drivers on the card: FASTA -> .gcz/.gcx, .gcz -> FASTA, GFF3 search.
+"""Drivers: FASTA -> .gcz/.gcx, .gcz -> FASTA, GFF3 search, host verbs.
 
-Port of gecoz_tpu/tools/driver.py: `index_fasta` (26-113) through the
-reference's device route, `_index_blocks_mesh` (116-173) into
-`parallel/mesh.py::encode_blocks` in bounded windows of blocks;
-`decompress` (223-365), the reference's `--backend device` route; and the
-device branch of `gff_search` (421-466).  There is no host fallback: a
-failure on the card raises.
+Port of gecoz_tpu/tools/driver.py.  Each card verb takes the reference's
+`backend` (`utils/device.py::resolve_backend`):
+
+* "auto" and "device": the device tier on `device` (default: the card),
+  with no host fallback: a failure on the card raises.  `index_fasta`
+  (26-113) goes through the reference's device route,
+  `_index_blocks_mesh` (116-173) into `parallel/mesh.py::encode_blocks`
+  in bounded windows of blocks; `decompress` (223-365) is the reference's
+  `--backend device` route; `gff_search` (421-466) its device branch.
+* "numpy" and "native": the reference's host tier, through the port's
+  copies: `encode_block_host` per block on a pool of `threads` workers
+  with a bounded pending queue (87-112), the host FM-index's chunked walk
+  decode on `threads` workers (299-313), and `FMIndex.find` per query and
+  strand (449-457).  Nothing runs on a device.
 
 The host verbs, which the JAX package also runs on the host whatever its
 backend (driver.py:368-415, 489-511), are the port's copies of the
@@ -27,13 +35,13 @@ import torch
 from gecoz_tpu_torch.formats.fasta import (iter_fasta, read_sequence,
                                            record_size, write_fasta_segment)
 from gecoz_tpu_torch.formats.gcz import (DEFAULT_SAMPLING_RATE, GecozReader,
-                                         GecozWriter)
+                                         GecozWriter, encode_block_host)
 from gecoz_tpu_torch.ops import fmq, lfwalk
 from gecoz_tpu_torch.tools.batch_search import find_batched
 from gecoz_tpu_torch.tools.blocks import plan_blocks
 from gecoz_tpu_torch.utils import metrics
 from gecoz_tpu_torch.utils.device import device as pick_device
-from gecoz_tpu_torch.utils.device import sync
+from gecoz_tpu_torch.utils.device import resolve_backend, sync
 from gecoz_tpu_torch.utils.hostmem import warm_for_block
 
 log = logging.getLogger("gecoz")
@@ -87,6 +95,14 @@ DECODE_CHUNK = 4 << 20      # bytes of text per decode task (GecoRead's 4 MiB)
 _COMPLEMENT = bytes.maketrans(b"ATCG", b"TAGC")
 
 
+def _tier(backend: str, dev, threads: int | None = None) -> str:
+    """The tier a verb runs on, for the INFO log."""
+    if dev is not None:
+        return f"backend {backend}: the device tier on {dev}"
+    return f"backend {backend}: the host tier" + (
+        f", {threads} threads" if threads else "")
+
+
 def _run_tasks(tasks, threads: int) -> None:
     if threads <= 1 or len(tasks) <= 1:
         for fn, args in tasks:
@@ -100,16 +116,25 @@ def _run_tasks(tasks, threads: int) -> None:
 
 
 def index_fasta(ipath, opath, xpath=None, sampling=DEFAULT_SAMPLING_RATE,
+                backend: str = "auto", threads: int = 1,
                 resume: bool = False,
                 device: torch.device | str | None = None,
                 mesh=None) -> None:
-    """FASTA -> .gcz/.gcx, every block encoded on `device` (default: the
+    """FASTA -> .gcz/.gcx (GecoIndex.index).
+
+    On the device tier every block is encoded on `device` (default: the
     card) through `_index_blocks_mesh`; a block beyond one card is sorted
     sharded over `mesh` (default: every local card) when it has more than
-    one shard.  With resume=True, complete leading blocks of an existing
-    output pair that match the plan are kept and encoding restarts after
-    them."""
+    one shard.  On the host tier ("numpy", "native") each block goes
+    through `encode_block_host`; with threads > 1, blocks encode
+    concurrently in a bounded pool (the C++ SA-IS and numpy serializers
+    release the GIL), written in plan order with in-flight work capped
+    like the reference's 1-deep queue (GecozFileWriter.java:174-201).
+    With resume=True, complete leading blocks of an existing output pair
+    that match the plan are kept and encoding restarts after them."""
     t0 = time.time()
+    tier = resolve_backend(backend)
+    dev = pick_device(device) if tier == "device" else None
     ipath = Path(ipath)
     sequences = list(iter_fasta(ipath, lazy=True))
     if not sequences:
@@ -117,7 +142,8 @@ def index_fasta(ipath, opath, xpath=None, sampling=DEFAULT_SAMPLING_RATE,
     blocks = plan_blocks(sequences)
     warm_for_block(max(sum(s.length + 1 for s in b.sequences)
                        for b in blocks))
-    log.info("indexing %d sequences in %d blocks", len(sequences), len(blocks))
+    log.info("indexing %d sequences in %d blocks (%s)", len(sequences),
+             len(blocks), _tier(backend, dev, threads))
     skip = _resume_prefix(opath, xpath, blocks, sampling) if resume else 0
     if skip:
         log.info("resuming after %d complete blocks", skip)
@@ -131,10 +157,42 @@ def index_fasta(ipath, opath, xpath=None, sampling=DEFAULT_SAMPLING_RATE,
                 parts.append(np.zeros(1, dtype=np.uint8))
             return np.concatenate(parts)
 
-    with GecozWriter(opath, xpath, sampling, device=device,
+    with GecozWriter(opath, xpath, sampling, device=dev,
                      append=skip > 0) as w:
-        _index_blocks_mesh(blocks, read_block, w, sampling, w.device, mesh)
+        if dev is not None:
+            _index_blocks_mesh(blocks, read_block, w, sampling, dev, mesh)
+        else:
+            _index_blocks_host(blocks, read_block, w, sampling, tier,
+                               threads)
     log.info("finished in %d ms", (time.time() - t0) * 1000)
+
+
+def _index_blocks_host(blocks, read_block, w, sampling, backend,
+                       threads) -> None:
+    """The host tier: `encode_block_host` per block, in plan order, on a
+    pool of `threads` workers with at most threads + 1 blocks pending
+    (gecoz_tpu/tools/driver.py:87-112)."""
+    if threads <= 1:
+        for block in blocks:
+            data = read_block(block)
+            with metrics.phase("index.encode_block", len(data)):
+                w.write_encoded(*encode_block_host(data, block.headers,
+                                                   sampling, backend))
+        return
+    import concurrent.futures as cf
+    pool = cf.ThreadPoolExecutor(max_workers=threads)
+    pending = []
+    try:
+        for block in blocks:
+            data = read_block(block)
+            pending.append(pool.submit(encode_block_host, data,
+                                       block.headers, sampling, backend))
+            while len(pending) > threads + 1:
+                w.write_encoded(*pending.pop(0).result())
+        for fut in pending:
+            w.write_encoded(*fut.result())
+    finally:
+        pool.shutdown()
 
 
 MESH_WINDOW_BYTES = 256 << 20   # text bytes batched per mesh-encode window
@@ -174,17 +232,21 @@ def _index_blocks_mesh(blocks, read_block, w, sampling, device,
     flush()
 
 
-def decompress(ipath, opath, threads: int = 1,
+def decompress(ipath, opath, backend: str = "auto", threads: int = 1,
                device: torch.device | str | None = None) -> None:
-    """.gcz -> FASTA (GecoRead.fasta:83-175), every block decoded on
-    `device` (default: the card).
+    """.gcz -> FASTA (GecoRead.fasta:83-175).
 
-    The output file is pre-sized from the exact per-record layout; each
-    block's text is decoded whole on the card, fetched, and reflowed into
-    its region in DECODE_CHUNK pieces by `threads` host workers."""
+    The output file is pre-sized from the exact per-record layout.  On the
+    device tier each block's text is decoded whole on `device` (default:
+    the card), fetched, and reflowed into its region in DECODE_CHUNK
+    pieces by `threads` host workers; on the host tier ("numpy",
+    "native") `threads` workers decode DECODE_CHUNK pieces over the host
+    FM-index's shared LF table and write them in place."""
     t0 = time.time()
-    dev = pick_device(device)
-    if dev.type == "cuda":
+    tier = resolve_backend(backend)
+    dev = pick_device(device) if tier == "device" else None
+    log.info("decompressing (%s)", _tier(backend, dev, threads))
+    if dev is not None and dev.type == "cuda":
         # build (first use) and load the walk kernels in a phase of their
         # own, not in the first block's decode.walk
         with metrics.phase("decode.kernels"):
@@ -206,9 +268,10 @@ def decompress(ipath, opath, threads: int = 1,
 
 
 def _decompress_block(fm, headers: list[str], opath, base: int,
-                      threads: int, dev: torch.device) -> int:
-    """Decode one block into its pre-sized region of `opath`; returns the
-    file offset following the block's records."""
+                      threads: int, dev: torch.device | None) -> int:
+    """Decode one block into its pre-sized region of `opath`, on `dev`, or
+    on the host tier when `dev` is None; returns the file offset following
+    the block's records."""
     import bisect
 
     # record layout: (file_off, header_len, header_bytes, lo, hi) per seq
@@ -239,12 +302,29 @@ def _decompress_block(fm, headers: list[str], opath, base: int,
                                     data[s0 - lo:s1 - lo])
             i += 1
 
-    text = _device_decode(fm, dev)
-    with metrics.phase("decode.reflow", fm.length):
-        chunks = [(lo, text[lo:lo + DECODE_CHUNK])
-                  for lo in range(0, fm.length, DECODE_CHUNK)]
-        _run_tasks([(scatter, c) for c in chunks], threads)
-        mm.flush()
+    if dev is not None:
+        text = _device_decode(fm, dev)
+        with metrics.phase("decode.reflow", fm.length):
+            chunks = [(lo, text[lo:lo + DECODE_CHUNK])
+                      for lo in range(0, fm.length, DECODE_CHUNK)]
+            _run_tasks([(scatter, c) for c in chunks], threads)
+            mm.flush()
+        return end
+
+    # host tier: chunked walk decode over the shared read-only LF table
+    fm._require_index()
+    rate = 1 << fm.index.sampling_factor
+    _ = fm.bwt, fm.lf, fm.walk_seeds()        # materialize shared state once
+    nwalks = fm.n_walks
+    wpc = max(1, DECODE_CHUNK // rate)        # walks per chunk
+
+    def decode_task(w0: int, w1: int) -> None:
+        scatter(w0 * rate, fm.decode_walks(w0, w1))
+
+    tasks = [(decode_task, (w0, min(w0 + wpc, nwalks)))
+             for w0 in range(0, nwalks, wpc)]
+    _run_tasks(tasks, threads)
+    mm.flush()
     return end
 
 
@@ -271,14 +351,17 @@ def _device_decode(fm, dev: torch.device) -> np.ndarray:
         return text.cpu().numpy()
 
 
-def gff_search(ref_path, fasta_path, out=None,
+def gff_search(ref_path, fasta_path, out=None, backend: str = "auto",
                device: torch.device | str | None = None) -> None:
     """Query-FASTA search emitting GFF3 rows, forward + reverse complement
-    (SimpleGFFGenerator.search:45-163): all queries x strands run as one
-    batched search and one batched locate per block on `device` (default:
-    the card)."""
+    (SimpleGFFGenerator.search:45-163).  On the device tier all queries x
+    strands run as one batched search and one batched locate per block on
+    `device` (default: the card); on the host tier ("numpy", "native")
+    `FMIndex.find` runs per query and strand."""
     out = sys.stdout if out is None else out
-    dev = pick_device(device)
+    tier = resolve_backend(backend)
+    dev = pick_device(device) if tier == "device" else None
+    log.info("GFF3 search (%s)", _tier(backend, dev))
     reader = GecozReader(ref_path)
 
     queries = []
@@ -288,12 +371,23 @@ def gff_search(ref_path, fasta_path, out=None,
         queries.append((q.header, seq, rev))
 
     # one block's query state at a time (GecoMatch.java:109-135)
-    patterns = [s for _, f, r in queries for s in (f, r)]
     results = []              # per block: (seq headers, {strand_idx: hits})
-    for bheader in reader.headers:
-        fm = reader.read(bheader)
-        results.append((bheader.headers, find_batched(fm, patterns, dev)))
-        del fm
+    if dev is not None:
+        patterns = [s for _, f, r in queries for s in (f, r)]
+        for bheader in reader.headers:
+            fm = reader.read(bheader)
+            results.append((bheader.headers, find_batched(fm, patterns,
+                                                          dev)))
+            del fm
+    else:
+        for bheader in reader.headers:
+            fm = reader.read(bheader)
+            per = {}
+            for qi, (_, fwd, rev) in enumerate(queries):
+                per[2 * qi] = fm.find(fwd)
+                per[2 * qi + 1] = fm.find(rev)
+            results.append((bheader.headers, per))
+            del fm
 
     # emit in the reference's row order: query -> strand -> block -> seq
     for qi, (header, fwd, _) in enumerate(queries):

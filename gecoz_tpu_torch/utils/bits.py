@@ -2,7 +2,8 @@
 
 The port's copy of gecoz_tpu/utils/bits.py: the same code,
 its imports pointed at gecoz_tpu_torch, so that the port imports
-nothing of the JAX package.
+nothing of the JAX package, plus `BitReader.overrun`, which the port's
+inflate uses to refuse a stream cut short (ROADMAP C2).
 
 The gecoz on-disk format stores every bit stream LSB-first inside
 little-endian 64-bit words (reference: nova-io AbstractBitStream.java:38-194,
@@ -96,6 +97,12 @@ class BitReader:
     @property
     def bitpos(self) -> int:
         return self._bitpos
+
+    @property
+    def overrun(self) -> bool:
+        """True once reads went past the end of the data (which `peek`
+        pads with zero bits)."""
+        return self._bitpos > len(self._data) * 8
 
     @property
     def bytepos(self) -> int:

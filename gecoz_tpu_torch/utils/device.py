@@ -1,10 +1,17 @@
-"""Device selection and memory budget (counterpart of the probe and of
-`device_hbm_bytes` in gecoz_tpu/utils/accel.py).
+"""Tier and device selection and memory budget (counterpart of the probe,
+the `--backend` policy and `device_hbm_bytes` in gecoz_tpu/utils/accel.py).
 
 The port runs on the card.  `device()` returns `cuda:0` and raises when
 there is none: a measurement or encode that finds no card fails instead of
 quietly running on the CPU.  The CPU is used only when a caller names it
 (`device("cpu")`), as the tests do.
+
+`resolve_backend()` maps the reference's `--backend` names onto the port's
+two tiers: `device` (the card, or the device `--device` names) for `auto`
+and `device`, the host tier for `numpy` and `native`.  The reference's
+`auto` weighs the device against the host with a relay cost model
+(accel.py:76-181); the port does not port it (ROADMAP A10), so its `auto`
+is the device tier, with no fallback.
 """
 
 from __future__ import annotations
@@ -14,14 +21,32 @@ import os
 import torch
 
 
+class NoDeviceError(RuntimeError):
+    """No card, and no device named: the port does not fall back to the
+    CPU."""
+
+
 def device(name: str | torch.device | None = None) -> torch.device:
     if name is not None:
         return torch.device(name)
     if not torch.cuda.is_available():
-        raise RuntimeError("no CUDA device is available; gecoz_tpu_torch "
-                           "runs on the card (pass device='cpu' to run its "
-                           "plain versions on the CPU)")
+        raise NoDeviceError("no CUDA device is available; gecoz_tpu_torch "
+                            "runs on the card (pass device='cpu' to run its "
+                            "plain versions on the CPU)")
     return torch.device("cuda", 0)
+
+
+BACKENDS = ("auto", "numpy", "native", "device")
+
+
+def resolve_backend(name: str) -> str:
+    """The tier of a `--backend` name: "device" for auto and device, the
+    name itself for the host tiers numpy and native.  Raises ValueError on
+    any other name."""
+    if name not in BACKENDS:
+        raise ValueError(f"unknown backend {name!r} (one of "
+                         f"{', '.join(BACKENDS)})")
+    return "device" if name in ("auto", "device") else name
 
 
 def sync(dev: torch.device) -> None:

@@ -112,8 +112,9 @@ def test_cli_index_path_and_resume(tmp_path, rng):
 
 
 def test_cli_refuses_what_is_not_ported(tmp_path, rng, capsys):
-    """Every verb is served now; what is refused is the reference's tier
-    switch, a missing input, and the card verbs without a card."""
+    """Every verb and every backend of the reference is served now; what is
+    refused is an unknown backend, a missing input, and the device tier
+    without a card."""
     fa = tmp_path / "x.fa"
     write_fasta(fa, _records(rng, k=1))
     gcz = tmp_path / "x.gcz"
@@ -126,7 +127,10 @@ def test_cli_refuses_what_is_not_ported(tmp_path, rng, capsys):
         assert cli.main(["-i", str(fa), "-o", str(gcz)]) == 1
         assert "no CUDA device" in capsys.readouterr().err
     assert cli.main(["-i", str(fa), "-o", str(gcz), "--backend",
-                     "native"]) == 1
+                     "tpu"]) == 1
+    assert cli.main(["-i", str(fa), "-o", str(tmp_path / "n.gcz"),
+                     "--backend", "native"]) == 0
+    assert (tmp_path / "n.gcz").read_bytes() == gcz.read_bytes()
     assert cli.main(["-i", str(tmp_path / "missing.fa"), "-o",
                      str(gcz)]) == 1
     assert cli.main(["-h"]) == 0

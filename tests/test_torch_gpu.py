@@ -453,3 +453,44 @@ def test_sa_state_on_card_equals_cpu(cuda, gen, sf):
     want = sa_state(sa.cpu(), bwt.cpu(), int(s[-1]), sf)
     for g, w in zip(got, want):
         assert g.is_cuda and torch.equal(g.cpu(), w)
+
+
+def test_native_backend_equals_device_backend(cuda, gen, tmp_path, capsys):
+    """The CLI's host tier (`--backend native -t 2`) and device tier
+    (`--backend device`, on the card) write the same .gcz/.gcx, decompress
+    to the same FASTA and print the same GFF3 rows."""
+    from gecoz_tpu_torch import cli
+    seqs = [gen.choice(np.frombuffer(b"ACGTN", np.uint8), size=n)
+            for n in (90000, 7000, 2500, 40)]
+    fa = tmp_path / "g.fa"
+    with open(fa, "wb") as f:
+        for i, q in enumerate(seqs):
+            f.write(b">s%d\n" % i + q.tobytes() + b"\n")
+    qf = tmp_path / "q.fa"
+    with open(qf, "wb") as f:
+        for i in range(20):
+            a = int(gen.integers(0, 80000))
+            f.write(b">q%d\n" % i + seqs[0][a:a + 16 + i].tobytes() + b"\n")
+    outs = {}
+    for backend in ("native", "device"):
+        gcz, back = tmp_path / f"{backend}.gcz", tmp_path / f"{backend}.fa"
+        argv = ["--backend", backend, "-t", "2"]
+        assert cli.main(["-i", str(fa), "-o", str(gcz)] + argv) == 0
+        assert cli.main(["-i", str(gcz), "-o", str(back)] + argv) == 0
+        capsys.readouterr()
+        assert cli.main(["-i", str(gcz), "-s", str(qf)] + argv) == 0
+        outs[backend] = (gcz.read_bytes(), gcz.with_suffix(".gcx").read_bytes(),
+                         back.read_bytes(), capsys.readouterr().out)
+    assert outs["native"] == outs["device"]
+    assert outs["device"][3] != ""
+
+
+def test_entry_on_card_equals_cpu(cuda):
+    from gecoz_tpu_torch.entry import entry
+    fn, args = entry()
+    assert all(a.is_cuda for a in args)
+    got = fn(*args)
+    cpu_fn, cpu_args = entry(device="cpu")
+    want = cpu_fn(*cpu_args)
+    for g, w in zip(got, want):
+        assert g.is_cuda and torch.equal(g.cpu(), w)
