@@ -20,7 +20,9 @@ Phases (any mismatch or exception exits non-zero):
    without the run-key table) against the host library's C++ SA-IS;
 4. the query-state build (`index_block`) against the port's plain path on
    the CPU, field by field, and its time at 4 MiB and 64 MiB;
-5. end to end: a seeded FASTA with a 64 MiB chromosome-class block through
+5. end to end (each run through the CLI on the card with this process's
+   getrusage deltas beside its wall: user and system time, minor faults,
+   max RSS, as in phases 7 and 9): a seeded FASTA with a 64 MiB chromosome-class block through
    `python -m gecoz_tpu_torch.cli` (the device tier, `--backend auto`: the
    mesh route, `encode_blocks`, its phase walls and the bytes the host
    fetched per block), the .gcz/.gcx bytes held against the CLI's host
@@ -45,7 +47,9 @@ Phases (any mismatch or exception exits non-zero):
    per-step plain rows of a 64 MiB block, the k = 16 walk beside its first
    design (v1); packed rows at the probe's 2048 walks x 32 steps over a 2 Mi block) and locate
    walks (2^20 rows), both beside the card's random-read rate (a library
-   gather of random rows); K1's search (2^20 16-mers, 20,000 reads of
+   gather of random rows), the locate walks' reads (a plain replay of the
+   walks) at the card's random 4-byte row rate giving their random-read
+   bound; K1's search (2^20 16-mers, 20,000 reads of
    16-150 bases on both strands) on the rank table (`with_rank_blocks`,
    timed), beside its first design (the flat planes), with the distinct
    32-byte sectors each search reads in both layouts (a plain replay of
@@ -180,6 +184,23 @@ def print_fetched() -> None:
               f"{f['samples']} sample + {f['wavelet']} wavelet bytes = "
               f"{got / f['n']:.3f} B/char (a full int32 SA and the node "
               f"bits: {(4 * f['n'] + f['wavelet']) / f['n']:.3f} B/char)")
+
+
+def rusage():
+    import resource
+    return resource.getrusage(resource.RUSAGE_SELF)
+
+
+def print_rusage(what: str, r0, r=None) -> None:
+    """This process's getrusage deltas from `r0` to `r` (default: now),
+    beside a run's wall: the host-memory policy (utils/hostmem.py) shows in
+    system time and minor faults.  Max RSS is the process's high-water
+    mark."""
+    r = r or rusage()
+    print(f"# rusage {what}: user {r.ru_utime - r0.ru_utime:.2f} s, system "
+          f"{r.ru_stime - r0.ru_stime:.2f} s, {r.ru_minflt - r0.ru_minflt} "
+          f"minor faults; max RSS {r.ru_maxrss / 2**20:.2f} GiB "
+          f"({(r.ru_maxrss - r0.ru_maxrss) / 2**20:+.2f} over the run)")
 
 
 def md5_records(path) -> dict[str, str]:
@@ -625,6 +646,7 @@ def phase_end_to_end(dev, workdir):
     mesh.FETCHED.clear()
     metrics.reset()
     torch.cuda.reset_peak_memory_stats(dev)
+    r0 = rusage()
     reset_counts()                            # the compress path starts
     t0 = time.perf_counter()
     rc = cli.main(["-i", fa, "-o", port_gcz, "--device", str(dev)])
@@ -635,6 +657,7 @@ def phase_end_to_end(dev, workdir):
     peak = torch.cuda.max_memory_allocated(dev)
     print(f"# port CLI compress: {secs:.2f} s -> {total / 1e6 / secs:.2f} "
           f"MB/s end to end; peak device memory {peak / 2**30:.2f} GiB")
+    print_rusage("port CLI compress", r0)
     print_phases()
     print_fetched()
 
@@ -661,6 +684,7 @@ def phase_end_to_end(dev, workdir):
     metrics.reset()
     torch.cuda.reset_peak_memory_stats(dev)
     first = {}
+    r0 = rusage()
     reset_counts()                            # the decompress path starts
     t0 = time.perf_counter()
     with first_launch_timed(lfwalk, "decode_walks", first):
@@ -670,6 +694,7 @@ def phase_end_to_end(dev, workdir):
     secs = time.perf_counter() - t0
     dlaunches = counts()                      # ... and ends here
     check(rc == 0, f"port CLI decompress exit code {rc}")
+    r_dec = rusage()
     back_host = os.path.join(workdir, "back_host.fa")
     t0 = time.perf_counter()
     rc = cli.main(["-i", port_gcz, "-o", back_host, "--backend", "native",
@@ -691,6 +716,7 @@ def phase_end_to_end(dev, workdir):
           f"tier's (md5 {hashlib.md5(a).hexdigest()}), md5 equal to the "
           f"input for all {len(want_md5)} records; peak device memory "
           f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB")
+    print_rusage("port CLI decompress", r0, r_dec)
     print_phases("decode.")
     dev_ms, host_ms = first["decode_walks"]
     print(f"# first K2 decode call of the run: {dev_ms:.3f} ms on the card "
@@ -740,6 +766,7 @@ def phase_two_large_blocks(dev, workdir):
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats(dev)
     mesh.FETCHED.clear()
+    r0 = rusage()
     t0 = time.perf_counter()
     rc = cli.main(["-i", fa, "-o", gcz, "--device", str(dev)])
     torch.cuda.synchronize()
@@ -752,16 +779,19 @@ def phase_two_large_blocks(dev, workdir):
           f"GiB; after the run {torch.cuda.memory_reserved(dev) / 2**30:.2f} "
           f"GiB reserved by torch, {free / 2**30:.2f} of {cap / 2**30:.2f} "
           "GiB free on the card")
+    print_rusage("two large blocks, compress", r0)
     print_phases()
     print_fetched()
     os.unlink(fa)
     back = os.path.join(workdir, "large_back.fa")
     metrics.reset()
     torch.cuda.reset_peak_memory_stats(dev)
+    r0 = rusage()
     t0 = time.perf_counter()
     rc = cli.main(["-i", gcz, "-o", back, "-t", "4", "--device", str(dev)])
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
+    r1 = rusage()
     check(rc == 0, f"port CLI decompress exit code {rc} on two large blocks")
     peak = torch.cuda.max_memory_allocated(dev)
     check(md5_records(back) == want_md5, "two large blocks: decompressed "
@@ -770,6 +800,7 @@ def phase_two_large_blocks(dev, workdir):
           f"{total / 1e6 / secs:.2f} MB/s end to end; md5 equal for both "
           f"records; peak device memory {peak / 2**30:.2f} GiB = "
           f"{peak / 248_956_423:.1f} B/char of the chr1 block")
+    print_rusage("two large blocks, decompress", r0, r1)
     print_phases("decode.")
 
 
@@ -1041,7 +1072,9 @@ def phase_query_kernels(dev):
     bounds[key] = 4 * int((v % rate + 1).sum()) + 20 * len(v)
     print(f"# locate walks: {(v % rate + 1).mean():.2f} row reads a row on "
           f"average, {int((v % rate + 1).max())} at most")
-    reads = int((v % rate + 1).sum()) + 3 * len(v)
+    reads = locate_reads(blk, rows)
+    check(reads == int((v % rate + 1).sum()) + 3 * len(v), "the locate "
+          "replay's reads disagree with the located values")
 
     # the card's random-read rate: one library gather of random rows
     def gather(t, count):
@@ -1068,6 +1101,7 @@ def phase_query_kernels(dev):
               f"{count / ms / 1e6:.2f} G rows/s")
         return count / ms
     per_ms4 = gather(blk.lf_tab, 1 << 24)
+    rr_bounds[key] = reads / per_ms4
     per_ms12 = gather(blk.lfk_tab, 1 << 22)
     dec_ms = times["lf_walk.decode lfk16 64 MiB"][0]
     print(f"# at those rates: decode's {2 * W} row reads take "
@@ -1182,6 +1216,24 @@ def phase_query_kernels(dev):
               f"{times[key][0]:.4f} ms = {100 * ms_bound / times[key][0]:.1f}"
               "% of it)")
     return err, times, bounds, rr_bounds
+
+
+def locate_reads(blk, rows) -> int:
+    """Random 4-byte reads the locate walks from `rows` make: a plain replay
+    of `lfwalk.locate_walks_ref` on the card counting, at every step, the
+    walks still live (one lf_tab row each), then for each walk that reached
+    a sampled row its mark word, its prefix and its ssa_perm entry."""
+    import torch
+    tab, idx = blk.lf_tab, rows.long()
+    live = torch.ones(rows.shape, dtype=torch.bool, device=rows.device)
+    reads = 0
+    for _ in range((1 << blk.sf) + 1):
+        reads += int(live.sum())
+        v = tab[idx]
+        live = live & (v >= 0)                 # bit 31: a sampled row
+        nxt = ((v >> 8) & 0x7FFFFF) if blk.lf_packed else (v & 0x7FFFFFFF)
+        idx = torch.where(live, nxt.long(), idx)
+    return reads + 3 * int((~live).sum())
 
 
 def search_sectors(blk, pats, lens):
@@ -1325,6 +1377,7 @@ def phase_search(dev, workdir, port_gcz):
         if budget:
             os.environ["GECOZ_HBM_BYTES"] = budget
         metrics.reset()
+        r0 = rusage()
         reset_counts()                        # the search path starts
         t0 = time.perf_counter()
         got = cli_out(cli.main, ["-i", port_gcz, "-s", qf, "--device",
@@ -1342,6 +1395,7 @@ def phase_search(dev, workdir, port_gcz):
               f"{len(got)} bytes byte-identical to the host tier's; "
               f"{q} pattern-block searches, {q / card:.0f} queries/s over "
               f"search.batch + search.locate")
+        print_rusage(f"port CLI -s queries.fa ({label})", r0)
         print_phases("search.")
         print(f"# launches during the search run ({label}): "
               f"{json.dumps(launches[label])}")
@@ -1567,7 +1621,8 @@ def main() -> int:
                "bound_ms": bound_ms(qbounds[key]), "bound_by": "bytes",
                "library_ms": None}
         if key in qrr:
-            # its distinct sectors at the card's random 32-byte row rate
+            # K1: its distinct sectors at the card's random 32-byte row
+            # rate; K2's locate: its walks' reads at the random 4-byte rate
             out["random_read_bound_ms"] = qrr[key]
         return out
     # the scan's add and fills: launches from the CLI compress; its max and

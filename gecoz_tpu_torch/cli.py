@@ -27,9 +27,11 @@ GFF3 batch search (`-i x.gcz -s queries.fa`), as the reference passes it
 Count (`-c [header] PATTERN`), locate (`-s header PATTERN` or `-s
 PATTERN`), range extract (`-o chr.seq chrN [from [to]]`) and `--check
 [--deep]` run on the host whatever the backend, as the reference runs them
-(the port's copies in `tools/driver.py`).  The reference CLI re-executes
-itself once with glibc's malloc tuned (gecoz_tpu/cli.py:26-46); the port's
-does not.
+(the port's copies in `tools/driver.py`).  Run as a process, the CLI
+re-executes itself once with glibc's malloc tuned for heap reuse, as the
+reference's does (`_retune_malloc`, gecoz_tpu/cli.py:26-46); opt out with
+GECOZ_NO_MALLOC_TUNING=1 (GECOZ_NO_HEAP_WARMUP=1 skips the in-process
+warm-up of `utils/hostmem.py`).
 """
 
 from __future__ import annotations
@@ -39,6 +41,29 @@ import sys
 from pathlib import Path
 
 HELP = __doc__
+
+
+def _retune_malloc(argv: list[str]) -> None:
+    """Re-exec once with glibc malloc tuned for heap reuse.
+
+    Hosts with on-demand-faulted VM memory serve fresh private pages
+    extremely slowly; keeping large buffers in the reusable heap (instead
+    of fresh mmaps trimmed back to the OS) makes steady-state encode an
+    order of magnitude faster.  Harmless elsewhere.  Opt out with
+    GECOZ_NO_MALLOC_TUNING=1.
+    """
+    import os
+    if os.environ.get("GECOZ_NO_MALLOC_TUNING") or \
+            os.environ.get("MALLOC_MMAP_THRESHOLD_"):
+        return
+    env = dict(os.environ)
+    env["MALLOC_MMAP_THRESHOLD_"] = str(1 << 34)
+    env["MALLOC_TRIM_THRESHOLD_"] = str(1 << 34)
+    try:
+        os.execve(sys.executable,
+                  [sys.executable, "-m", "gecoz_tpu_torch.cli"] + argv, env)
+    except OSError:
+        pass
 
 
 def parse_args(argv: list[str]) -> dict[str, list[str]]:
@@ -166,4 +191,5 @@ def _run(params: dict[str, list[str]], backend: str,
 
 
 if __name__ == "__main__":
+    _retune_malloc(sys.argv[1:])   # re-exec only as a real CLI process
     sys.exit(main())

@@ -1,8 +1,14 @@
 """Host memory arena management.
 
-The port's copy of gecoz_tpu/utils/hostmem.py: the same code,
-its imports pointed at gecoz_tpu_torch, so that the port imports
-nothing of the JAX package.
+The port's copy of gecoz_tpu/utils/hostmem.py, with one deliberate
+divergence (ROADMAP C3): `_mallopt`.  The reference passes
+`c_int((1 << 40) & 0x7FFFFFFF)`, which is 0, so its first warm-up sets
+both thresholds to 0 (every heap extension a fresh mmap, every free
+returned to the kernel, the pre-faulted arena unmapped as soon as it is
+freed) and undoes the thresholds its CLI's re-exec set.  The port passes
+`_THRESHOLD`, the largest C int, leaves a threshold that the environment
+sets (`MALLOC_MMAP_THRESHOLD_`, `MALLOC_TRIM_THRESHOLD_`: the CLI's
+re-exec or the user's) alone, and logs what each mallopt call returned.
 
 Some virtualized hosts (e.g. snapshot-restored microVMs with
 userfaultfd-backed private memory) fault fresh MAP_PRIVATE pages in at
@@ -18,12 +24,16 @@ mallopt is unavailable; harmless on healthy hosts.
 from __future__ import annotations
 
 import ctypes
+import logging
 import os
 
 import numpy as np
 
+log = logging.getLogger("gecoz.hostmem")
+
 _M_TRIM_THRESHOLD = -1
 _M_MMAP_THRESHOLD = -3
+_THRESHOLD = (1 << 31) - 1        # mallopt takes a C int
 
 _warmed_bytes = 0
 _mallopt_done = False
@@ -35,12 +45,18 @@ def _mallopt() -> None:
         return
     _mallopt_done = True
     try:
-        libc = ctypes.CDLL(None, use_errno=True)
-        big = 1 << 40
-        libc.mallopt(_M_MMAP_THRESHOLD, ctypes.c_int(big & 0x7FFFFFFF))
-        libc.mallopt(_M_TRIM_THRESHOLD, ctypes.c_int(big & 0x7FFFFFFF))
-    except Exception:
-        pass
+        mallopt = ctypes.CDLL(None, use_errno=True).mallopt
+    except (OSError, AttributeError):
+        return
+    for param, var in ((_M_MMAP_THRESHOLD, "MALLOC_MMAP_THRESHOLD_"),
+                       (_M_TRIM_THRESHOLD, "MALLOC_TRIM_THRESHOLD_")):
+        if os.environ.get(var):
+            log.debug("hostmem: %s=%s set by the environment; left as it is",
+                      var, os.environ[var])
+            continue
+        rc = mallopt(param, ctypes.c_int(_THRESHOLD))
+        log.debug("hostmem: mallopt(%d, %d) returned %d", param, _THRESHOLD,
+                  rc)
 
 
 def ensure_arena(nbytes: int) -> None:
