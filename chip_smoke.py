@@ -80,7 +80,27 @@ Phases (any mismatch or exception exits non-zero):
     the card's busy share over the traced window; `entry()` on the card
     against `entry("cpu")`; `tools.validate_scale --cli --profile genome
     --mb 32` and `tools.probe_sharded_scale --mb 16` as processes of their
-    own, each printing its PASSED line.  The total time is printed last.
+    own, each printing its PASSED line;
+12. (run after phase 9) blocks past 16 symbols, which the reference's
+    plane engine refuses and the port serves on the card: the block
+    planner's time on 1,000-4,000 Swiss-Prot-shaped records; a FASTA of
+    4,000 such records (lognormal lengths of mean ~360, one of titin's
+    35,213 residues, Swiss-Prot's amino-acid composition plus X: 22
+    symbols) through the port's CLI on the card, its .gcz/.gcx and
+    decompressed FASTA against the CLI's host tier (`--backend native -t
+    4`), md5 per record, GFF3 rows of 1,000 peptides of 8-50 residues
+    against a plain byte search of the records and those of the first 50
+    against `--backend numpy`; one 64 MiB protein record through the CLI
+    (compress, decompress with md5, search of 100 peptides against a
+    plain byte search); at block level its decode with and without the
+    bit planes (peak B/char), K2's byte-row walk (lfk4) against its plain
+    version at 64 MiB, timed, beside its bytes bound and its random-read
+    bound (a library gather of random 8-byte rows), and its search
+    tables' peak; a 4 MiB block of all 256 byte values encoded on the
+    card, decoded by the decompress path and searched (K1 against its
+    plain version, located hits at their pattern's bytes), with the
+    decode and search peaks.  The launches of each run are printed.  The
+    total time is printed last.
 
 The port stands alone: an import hook refuses JAX and gecoz_tpu, and the
 oracles are the port's host copies (tests/test_torch_host_copies.py holds
@@ -88,7 +108,8 @@ them equal to gecoz_tpu's on the CPU) or plain computations on the
 genome.  The last line is {"ok": true, "device": {...}}; the line before
 it lists the kernels of the paths with their launches in the runs through
 the CLI (the scan's max and reverse min: in phase 10's 64 MiB sharded
-sort), their times, bounds and library calls.
+sort; K2's byte rows: in phase 12's 64 MiB protein decompress), their
+times, bounds and library calls.
 """
 
 from __future__ import annotations
@@ -134,6 +155,10 @@ QUERY_KERNELS = (
     ("lf_walk.decode", "gecoz_tpu_torch/csrc/lfwalk.cu",
      "tools/probe_gather2d.py:18"),                # main: k_walk
     ("lf_walk.locate", "gecoz_tpu_torch/csrc/lfwalk.cu",
+     "tools/probe_gather2d.py:18"),
+    # the decode walks' byte rows (k = 4), the path of blocks past 16
+    # symbols (phase 12)
+    ("lf_walk.decode.lfk4", "gecoz_tpu_torch/csrc/lfwalk.cu",
      "tools/probe_gather2d.py:18"))
 
 
@@ -154,6 +179,7 @@ def counts() -> dict[str, int]:
     out = dict(scan.LAUNCHES)
     out["fm_search"] = fmsearch.LAUNCHES["fm_search"]
     out.update({f"lf_walk.{k}": v for k, v in lfwalk.LAUNCHES.items()})
+    out["lf_walk.decode.lfk4"] = lfwalk.DECODE_LAUNCHES["lfk4"]
     return out
 
 
@@ -1441,6 +1467,374 @@ def phase_search(dev, workdir, port_gcz):
     return launches
 
 
+# Swiss-Prot's amino-acid composition (%; UniProtKB/Swiss-Prot release
+# statistics) in AA's order; X (an unknown residue) at 0.01%
+AA = b"ACDEFGHIKLMNPQRSTVWY"
+AA_PERCENT = (8.25, 1.37, 5.45, 6.75, 3.86, 7.07, 2.27, 5.96, 5.84, 9.66,
+              2.42, 4.06, 4.70, 3.93, 5.53, 6.56, 5.34, 6.87, 1.08, 2.92)
+TITIN = 35213           # Swiss-Prot's longest entry (Q8WZ42) caps a block
+SP_RECORDS = 4000       # records of the Swiss-Prot-shaped FASTA (PERF.md:
+                        # the block planner is superlinear in records)
+SP_NUMPY_PEPTIDES = 50  # peptides also held against the host tier's find
+
+
+def residues(rng, n: int):
+    """n residues at Swiss-Prot's composition, X included."""
+    import numpy as np
+    p = np.array(AA_PERCENT + (0.01,))
+    return rng.choice(np.frombuffer(AA + b"X", np.uint8), size=n,
+                      p=p / p.sum())
+
+
+def swissprot_records(rng, count: int):
+    """`count` records shaped like Swiss-Prot's: lognormal lengths of mean
+    ~360 residues (Swiss-Prot's mean length), one of titin's length, each
+    starting with M."""
+    import numpy as np
+    lens = np.clip(rng.lognormal(5.69, 0.62, count).astype(np.int64), 2,
+                   TITIN)
+    lens[int(rng.integers(0, count))] = TITIN
+    res = residues(rng, int(lens.sum()))
+    offs = np.concatenate([[0], np.cumsum(lens)])
+    res[offs[:-1]] = ord("M")
+    return [(f"sp|Q{i:05d}|PRT{i}_SYNTH", res[offs[i]:offs[i + 1]])
+            for i in range(count)]
+
+
+def make_peptides(rng, recs, path, count: int) -> None:
+    """`count` peptides of 8-50 residues drawn from records of 8 or more:
+    a quarter with one residue changed, a quarter with an X."""
+    with open(path, "wb") as f:
+        i = 0
+        while i < count:
+            name, seq = recs[int(rng.integers(0, len(recs)))]
+            if len(seq) < 8:
+                continue
+            ln = int(rng.integers(8, min(51, len(seq) + 1)))
+            a = int(rng.integers(0, len(seq) - ln + 1))
+            q = seq[a:a + ln].copy()
+            if i % 4 == 1:
+                q[int(rng.integers(0, ln))] = AA[int(rng.integers(0, 20))]
+            elif i % 4 == 2:
+                q[int(rng.integers(0, ln))] = ord("X")
+            f.write(b">pep%d|%s\n" % (i, name.encode()) + q.tobytes()
+                    + b"\n")
+            i += 1
+
+
+def gff_plain(gcz, recs, qf) -> str:
+    """The GFF3 rows a plain byte search of the records gives, in the
+    verbs' row order (query, strand, block, sequence, position), written
+    by the verbs' row writer."""
+    import numpy as np
+    from gecoz_tpu_torch.formats.fasta import iter_fasta
+    from gecoz_tpu_torch.formats.gcz import GecozReader
+    from gecoz_tpu_torch.tools.driver import _COMPLEMENT, _gff_row
+    text = b"\n".join(s.tobytes() for _, s in recs)
+    starts = np.cumsum([0] + [len(s) + 1 for _, s in recs])
+    blocks = [bh.headers for bh in GecozReader(gcz).headers]
+    out = io.StringIO()
+    for q in iter_fasta(qf):
+        fwd = bytes(q.data).replace(b"U", b"T")
+        for pat, reverse in ((fwd, False),
+                             (fwd[::-1].translate(_COMPLEMENT), True)):
+            hits: dict[str, list[int]] = {}
+            for at in occurrences(text, pat):
+                r = int(np.searchsorted(starts, at, side="right")) - 1
+                hits.setdefault(recs[r][0], []).append(at - int(starts[r]))
+            for headers in blocks:
+                for h in headers:
+                    for p in hits.get(h, ()):
+                        _gff_row(out, h, p, len(fwd), reverse, q.header)
+    return out.getvalue()
+
+
+def peak_of(dev, fn):
+    """(fn's result, its peak device bytes above what was allocated
+    before it)."""
+    import torch
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    out = fn()
+    torch.cuda.synchronize()
+    return out, torch.cuda.max_memory_allocated(dev) - base
+
+
+def cli_round_trip(dev, workdir, label, fa, recs, qf, host_tier: bool,
+                   numpy_qf=None):
+    """A FASTA through the port's CLI on the card: compress, decompress
+    (md5 per record against `recs`), GFF3 search of `qf` (rows against a
+    plain byte search); with `host_tier` the files and the decompress
+    held against the CLI's host tier (`--backend native -t 4`) and the
+    rows of `numpy_qf` against its `--backend numpy`.  Returns the
+    launches of the decompress and search runs."""
+    import torch
+    from gecoz_tpu_torch import cli
+    from gecoz_tpu_torch.utils import metrics
+    total = sum(len(s) for _, s in recs)
+    gcz = os.path.join(workdir, f"{label}.gcz")
+    runs = {}
+
+    def run(what, argv, stdout=False):
+        metrics.reset()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        r0 = rusage()
+        reset_counts()                        # the path starts
+        t0 = time.perf_counter()
+        out = (cli_out(cli.main, argv + ["--device", str(dev)]) if stdout
+               else cli.main(argv + ["--device", str(dev)]))
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        runs[what] = counts()                 # ... and ends here
+        check(stdout or out == 0, f"{label}: port CLI {what} exit code {out}")
+        peak = torch.cuda.max_memory_allocated(dev)
+        print(f"# {label}: port CLI {what} on the card: {secs:.2f} s, "
+              f"{total / 1e6 / secs:.2f} MB/s; peak device memory "
+              f"{peak / 2**30:.3f} GiB = {peak / total:.1f} B/char")
+        print_rusage(f"{label}, {what}", r0)
+        print_phases()
+        print(f"# launches during the {label} {what} run: "
+              f"{json.dumps(runs[what])}")
+        return out
+
+    run("compress", ["-i", fa, "-o", gcz])
+    back = os.path.join(workdir, f"{label}.back.fa")
+    run("decompress", ["-i", gcz, "-o", back, "-t", "4"])
+    want = {h.split()[0]: hashlib.md5(s.tobytes()).hexdigest()
+            for h, s in recs}
+    check(md5_records(back) == want, f"{label}: decompressed records differ "
+          "from the input")
+    check(runs["decompress"]["lf_walk.decode.lfk4"] > 0, f"{label}: the "
+          "decompress path launched no lfk4 decode walk")
+    print(f"# {label}: md5 equal to the input for all {len(want)} records")
+    if host_tier:
+        host = os.path.join(workdir, f"{label}.host.gcz")
+        t0 = time.perf_counter()
+        check(cli.main(["-i", fa, "-o", host, "--backend", "native", "-t",
+                        "4"]) == 0, f"{label}: host tier compress failed")
+        for ext in ("gcz", "gcx"):
+            a = open(gcz[:-3] + ext, "rb").read()
+            check(a == open(host[:-3] + ext, "rb").read(), f"{label}: .{ext} "
+                  "differs from the host tier's")
+        hback = os.path.join(workdir, f"{label}.host.fa")
+        check(cli.main(["-i", gcz, "-o", hback, "--backend", "native", "-t",
+                        "4"]) == 0, f"{label}: host tier decompress failed")
+        check(open(back, "rb").read() == open(hback, "rb").read(),
+              f"{label}: the card's decompress differs from the host tier's")
+        print(f"# {label}: .gcz/.gcx and the decompressed FASTA "
+              "byte-identical to the host tier's (--backend native -t 4: "
+              f"{time.perf_counter() - t0:.2f} s for both)")
+    rows = run("search", ["-i", gcz, "-s", qf], stdout=True)
+    check(rows == gff_plain(gcz, recs, qf), f"{label}: GFF3 rows differ from "
+          "a plain byte search of the records")
+    check(runs["search"]["fm_search"] > 0, f"{label}: fm_search was not "
+          "launched by the search path")
+    print(f"# {label}: {rows.count(chr(10))} GFF3 rows equal to a plain byte "
+          "search of the records, written as the verbs write them")
+    if numpy_qf:
+        t0 = time.perf_counter()
+        want_rows = cli_out(cli.main, ["-i", gcz, "-s", numpy_qf,
+                                       "--backend", "numpy"])
+        secs = time.perf_counter() - t0
+        got = cli_out(cli.main, ["-i", gcz, "-s", numpy_qf, "--device",
+                                 str(dev)])
+        check(got == want_rows, f"{label}: GFF3 rows differ from the host "
+              "tier's (--backend numpy)")
+        print(f"# {label}: GFF3 rows of {numpy_qf.rsplit('/', 1)[-1]} "
+              f"({want_rows.count(chr(10))} rows) byte-identical to "
+              f"--backend numpy's (FMIndex.find: {secs:.2f} s)")
+    return runs
+
+
+def phase_wide_alphabets(dev, workdir):
+    """Phase 12: blocks of more than 16 symbols, which the reference's
+    plane engine refuses and the port serves on the card."""
+    import numpy as np
+    import torch
+    from gecoz_tpu_torch.formats.gcz import GecozReader, encode_block
+    from gecoz_tpu_torch.ops import fmq, fmsearch, lfwalk
+    from gecoz_tpu_torch.tools import batch_search, driver
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(41)
+    err, times, bounds, rr_bounds = {}, {}, {}, {}
+
+    # Swiss-Prot-shaped records through the CLI, against the host tier
+    recs = swissprot_records(rng, SP_RECORDS)
+    fa = os.path.join(workdir, "swissprot.fa")
+    write_fasta(fa, recs)
+    qf, qn = (os.path.join(workdir, n) for n in ("pep.fa", "pep_numpy.fa"))
+    make_peptides(rng, recs, qf, 1000)
+    with open(qf, "rb") as f:
+        lines = f.read().split(b"\n")
+    with open(qn, "wb") as f:
+        f.write(b"\n".join(lines[:2 * SP_NUMPY_PEPTIDES]) + b"\n")
+    print(f"# Swiss-Prot-shaped FASTA: {len(recs)} records, "
+          f"{sum(len(s) for _, s in recs)} residues (mean "
+          f"{np.mean([len(s) for _, s in recs]):.1f}, longest {TITIN}), 21 "
+          "letters + the terminator")
+    # the block planner (the reference's merge policy) is what bounds the
+    # records a FASTA here may hold
+    from gecoz_tpu_torch.formats.fasta import FastaSequence
+    from gecoz_tpu_torch.tools.blocks import plan_blocks
+    for count in (1000, 2000, SP_RECORDS):
+        seqs = [FastaSequence(h, len(s), 0, False) for h, s in recs[:count]]
+        t0 = time.perf_counter()
+        planned = plan_blocks(seqs)
+        print(f"# plan_blocks of {count} Swiss-Prot-shaped records: "
+              f"{time.perf_counter() - t0:.2f} s on the host, "
+              f"{len(planned)} blocks")
+    sp_runs = cli_round_trip(dev, workdir, "swissprot", fa, recs, qf, True,
+                             qn)
+    reader = GecozReader(os.path.join(workdir, "swissprot.gcz"))
+    t0 = time.perf_counter()
+    nrec = sum(len(reader.read(h).e) for h in reader.headers)
+    print(f"# swissprot: {len(reader.headers)} blocks (the planner caps a "
+          "block at the longest record); the host FM-index's record ends "
+          f"(`fm.e`, which the decompress reads for each record's bounds) of "
+          f"all {nrec} records: {time.perf_counter() - t0:.2f} s on the host")
+    del reader
+    del recs
+
+    # one 64 MiB protein record: the decompress path's lfk4 walk at size
+    n = 64 * MiB
+    big = residues(rng, n)
+    recs = [("prot64m", big)]
+    fa = os.path.join(workdir, "protein64.fa")
+    write_fasta(fa, recs)
+    qf = os.path.join(workdir, "pep64.fa")
+    make_peptides(rng, recs, qf, 100)
+    big_runs = cli_round_trip(dev, workdir, "protein64", fa, recs, qf, False)
+    os.unlink(fa)
+    reader = GecozReader(os.path.join(workdir, "protein64.gcz"))
+    fm = reader.read(reader.headers[0])
+    _ = fm.bwt, fm.index.sampled_rows()       # the host's parts, once
+    nb = fm.length
+    for planes in (False, True):
+        blk, peak = peak_of(dev, lambda: fmq.with_lf_table(
+            fmq.device_block_from_fm(fm, dev, planes=planes)))
+        text, peak2 = peak_of(dev, lambda: fmq.decode_text(blk))
+        check(np.array_equal(text[:n].cpu().numpy(), big),
+              "protein64: decode_text differs from the record")
+        print(f"# protein64 decode at block level, planes={planes}: lift + "
+              f"tables peak {peak / nb:.1f} B/char above the inputs, walk "
+              f"{peak2 / nb:.1f} B/char; lfk_k {blk.lfk_k}")
+        del text
+    check(blk.lfk_k == 4, "protein64 decode rows")
+    rate = 1 << blk.sf
+    W = (nb - 1) // rate
+    seeds = fmq._row_with_sa(blk, (torch.arange(W, dtype=torch.int32,
+                                                device=dev) + 1) * rate)
+    key = "lf_walk.decode lfk4 64 MiB"
+    (want,) = timed_pair(
+        "lf_walk.decode.lfk4",
+        lambda: lfwalk.decode_walks(blk.lfk_tab, seeds, rate, "lfk4"),
+        lambda: lfwalk.decode_walks_ref(blk.lfk_tab, seeds, rate, "lfk4"),
+        10, err, times, key)
+    check(np.array_equal(want.view(-1).cpu().numpy(), big[:W * rate]),
+          "lfk4 walks differ from the record")
+    del want
+    # seeds in, 8-byte rows read (rate / 4 a walk), the text out
+    reads = W * (rate // 4)
+    bounds[key] = 4 * W + 8 * reads + W * rate
+    rows8 = blk.lfk_tab.view(torch.int64).view(-1)
+    idx = torch.randint(0, rows8.shape[0], (1 << 24,), device=dev,
+                        generator=torch.Generator(dev).manual_seed(5))
+    ms = cuda_ms(lambda: torch.index_select(rows8, 0, idx), 10)
+    per_ms8 = (1 << 24) / ms
+    rr_bounds[key] = reads / per_ms8
+    print(f"# random reads: torch.index_select of {1 << 24} random 8-byte "
+          f"rows of a {rows8.numel() * 8 >> 20} MiB table: {ms:.4f} ms = "
+          f"{per_ms8 / 1e6:.2f} G rows/s; lfk4's {reads} row reads take "
+          f"{rr_bounds[key]:.4f} ms at that rate (kernel "
+          f"{times[key][0]:.4f} ms), bytes bound {bound_ms(bounds[key]):.4f}"
+          f" ms; lfk4 table {blk.lfk_tab.numel() * 4 / nb:.0f} B/char")
+    del blk, seeds, rows8, idx
+    sblk, peak = peak_of(dev, lambda: batch_search.search_tables(fm, dev))
+    planes = (sblk.plane_words.numel() + sblk.plane_pres.numel()) * 4
+    print(f"# protein64 search tables at block level: peak {peak / nb:.1f} "
+          f"B/char above the inputs; planes {planes / nb:.2f}"
+          f", rank table {sblk.rank_blocks.numel() * 4 / nb:.2f} B/char; "
+          f"k-mer table k {sblk.kmer_k}, {sblk.kmer_bits} bits, "
+          f"{sblk.kmer_tab.shape[0]} rows")
+    del sblk, fm, reader, big, recs
+
+    # a 4 MiB block of all 256 byte values at block level
+    n4 = 4 * MiB
+    data = rng.integers(1, 256, n4).astype(np.uint8)
+    cuts = np.sort(rng.choice(np.arange(1000, n4 - 1000), 3, replace=False))
+    data[cuts] = 0
+    data[-1] = 0
+    heads = [f"bytes{i}" for i in range(4)]
+    (gz, gx), secs = wall(lambda: encode_block(data, heads, device=dev))
+    p256 = os.path.join(workdir, "all256.gcz")
+    with open(p256, "wb") as f:
+        f.write(gz)
+    with open(p256[:-3] + "gcx", "wb") as f:
+        f.write(gx)
+    reader = GecozReader(p256)
+    fm = reader.read(reader.headers[0])
+    _ = fm.bwt, fm.index.sampled_rows()
+    print(f"# all256: a {n4}-byte block of 256 symbols encoded on the card "
+          f"in {secs:.2f} s")
+    reset_counts()
+    text, peak = peak_of(dev, lambda: driver._device_decode(fm, dev))
+    check(np.array_equal(text, data), "all256: the decode path differs from "
+          "the block")
+    check(lfwalk.DECODE_LAUNCHES["lfk4"] > 0, "all256: no lfk4 launch")
+    print(f"# all256: driver._device_decode equal to the block; peak "
+          f"{peak / n4:.1f} B/char; launches {json.dumps(counts())}")
+    blk, peak = peak_of(dev, lambda: fmq.with_lf_table(
+        fmq.device_block_from_fm(fm, dev, planes=True)))
+    print(f"# all256: the decode lift with the planes: lift + tables peak "
+          f"{peak / n4:.1f} B/char (planes "
+          f"{(blk.plane_words.numel() + blk.plane_pres.numel()) * 4 / n4:.1f}"
+          " B/char)")
+    del blk
+    sblk, peak = peak_of(dev, lambda: batch_search.search_tables(fm, dev))
+    check(fmq.n_planes(sblk) == 256 and sblk.kmer_bits == 8, "all256 tables")
+    print(f"# all256: search tables peak {peak / n4:.1f} B/char; rank table "
+          f"{sblk.rank_blocks.numel() * 4 / n4:.1f} B/char; k-mer table k "
+          f"{sblk.kmer_k}, {sblk.kmer_bits} bits, {sblk.kmer_tab.shape[0]} "
+          "rows")
+    pats = []
+    for a, ln in zip(rng.integers(0, n4 - 64, 20000),
+                     rng.integers(1, 40, 20000)):
+        p = data[a:a + ln].tobytes()
+        if 0 not in p:
+            pats.append(p)
+    pats += [rng.integers(1, 256, 6).astype(np.uint8).tobytes()
+             for _ in range(1000)]
+    arr, ln = batch_search.pack_patterns(pats)
+    a, lens = torch.from_numpy(arr).to(dev), torch.from_numpy(ln).to(dev)
+    sp, ep = timed_pair(
+        "fm_search", lambda: fmq.search_batch(sblk, a, lens),
+        lambda: fmsearch.backward_search_ref(sblk, a, lens), 5, err, times,
+        "fm_search all256 4 MiB")
+    cnt = (ep - sp + 1).clamp(min=0)
+    check(bool((cnt[:len(pats) - 1000] > 0).all()), "all256: a pattern "
+          "drawn from the block was not found")
+    rows = torch.cat([torch.arange(int(s), int(e) + 1, device=dev)
+                      for s, e in zip(sp[:200].tolist(), ep[:200].tolist())
+                      if e >= s]).to(torch.int32)
+    vals = fmq.locate_batch(sblk, rows).cpu().numpy()
+    owner = np.repeat(np.arange(200), np.maximum(
+        (ep[:200] - sp[:200] + 1).cpu().numpy(), 0))
+    check(all(data[v:v + len(pats[o])].tobytes() == pats[o]
+              for v, o in zip(vals, owner)), "all256: a located hit differs "
+          "from its pattern")
+    print(f"# all256: {len(pats)} patterns searched (K1 bit-exact against "
+          f"plain), {int(cnt.sum())} hits; the first 200 patterns' "
+          f"{len(vals)} hits located at their pattern's bytes")
+    del sblk, a, lens, sp, ep
+    torch.cuda.empty_cache()
+    print(f"# phase 12 (blocks past 16 symbols): "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    return sp_runs, big_runs, err, times, bounds, rr_bounds
+
+
 def sharded_run(label, s, mesh, impl, want=None, again=False):
     """One sharded suffix sort of `s` over `mesh`, timed, with its peak
     device memory, distributed sorts and exchange rounds, and the scan
@@ -1588,6 +1982,7 @@ def main() -> int:
                    os.path.join(work, "port.gcz"))
         qerr, qtimes, qbounds, qrr = phase_query_kernels(dev)
         slaunches = phase_search(dev, work, os.path.join(work, "port.gcz"))
+        _, wruns, werr, wtimes, wbounds, wrr = phase_wide_alphabets(dev, work)
         phase_tools(dev, work)
     loaded = [m for m in sys.modules if m.split(".")[0] in REFUSED]
     check(not loaded, f"{loaded} were imported")
@@ -1610,7 +2005,14 @@ def main() -> int:
                           "fm_search 2^20 16-mers"),
             "lf_walk.decode": (dlaunches, "lf_walk.decode lfk16 64 MiB"),
             "lf_walk.locate": (slaunches["budget 1 B"],
-                               "lf_walk.locate 2^20 rows 64 MiB")}
+                               "lf_walk.locate 2^20 rows 64 MiB"),
+            "lf_walk.decode.lfk4": (wruns["decompress"],
+                                    "lf_walk.decode lfk4 64 MiB")}
+    for k, e in werr.items():
+        qerr[k] = max(qerr.get(k, 0), e)
+    qtimes.update(wtimes)
+    qbounds.update(wbounds)
+    qrr.update(wrr)
 
     def query_entry(name, source, replaces):
         run, key = runs[name]

@@ -31,6 +31,17 @@ Differences from the reference:
   upload and 4-bit text fetch (`utils/xfer.py`) cut bytes over its remote
   relay and are not ported.
 * torch has no popcount: a SWAR popcount on int64 stands in.
+* Blocks of more than 16 symbols (protein, IUPAC codes in both cases, up
+  to all 256 byte values): the reference's plane engine refuses them
+  ("exceeds the plane engine"), so its decompress decodes them on the
+  host tier and its `--backend device` logs the failure and falls back
+  there.  The port serves them on the device with the same output: the
+  decode rows past `CODE_PLANES` planes hold bytes (k = 4) where the
+  4-bit plane codes of k = 16 and 8 do not fit, and the search's k-mer
+  table codes `bits` = 5-8 bits a plane.
+* The decode lift (`device_block_from_fm(..., planes=False)`) builds no
+  bit planes, since the decode walks read none; c comes from a histogram
+  of the BWT.  The reference's decode builds them.
 """
 
 from __future__ import annotations
@@ -47,7 +58,9 @@ from gecoz_tpu_torch.ops.sa_device import check_strategy
 from gecoz_tpu_torch.ops.scan import cumsum_i32
 
 _I32 = torch.int32
-MAX_PLANES = 16
+# planes the 4-bit codes of the k = 16 and k = 8 decode rows can name; a
+# block with more decodes through byte rows (k = 4)
+CODE_PLANES = 16
 
 # lf values below this pack with the symbol in one 32-bit row (tests
 # monkeypatch it to reach the plain row format at small sizes)
@@ -59,9 +72,10 @@ class DeviceFMBlock:
     """Query state of one block."""
 
     bwt: torch.Tensor          # uint8 [n] BWT bytes
-    plane_words: torch.Tensor  # u32 bits as int32 [sigma*W] bit words
+    plane_words: torch.Tensor  # u32 bits as int32 [sigma*W] bit words;
+                               # empty [0] when not built (decode lift)
     plane_pres: torch.Tensor   # u32 bits as int32 [sigma*W] exclusive
-                               # per-word rank prefixes
+                               # per-word rank prefixes; empty [0] likewise
     c: torch.Tensor            # int32 [257] cumulative symbol counts
     sym_plane: torch.Tensor    # int32 [256] byte -> plane row (-1 absent)
     wrap_row: torch.Tensor     # int32 [] row with SA value 0
@@ -219,25 +233,49 @@ def _u32_as_i32(words: torch.Tensor) -> torch.Tensor:
     return (words - ((words >> 31) << 32)).to(_I32)
 
 
+def _sym_plane(symbols: tuple[int, ...], dev) -> torch.Tensor:
+    """int32 [256]: byte -> its plane row in `symbols` order, -1 absent."""
+    sym_plane = np.full(256, -1, dtype=np.int32)
+    sym_plane[list(symbols)] = np.arange(len(symbols), dtype=np.int32)
+    return torch.from_numpy(sym_plane).to(dev)
+
+
 def _symbol_planes(bwt: torch.Tensor, symbols: tuple[int, ...]):
     """(plane_words, plane_pres, c, sym_plane) of the BWT over the static
     alphabet `symbols` (plane order); symbol counts fall out of the plane
-    popcounts."""
+    popcounts.  Each plane is written into the outputs as it is built, so
+    the build holds sigma/4 bytes a character and one plane's
+    temporaries."""
     dev = bwt.device
-    planes, pres, totals = [], [], []
-    sym_plane = np.full(256, -1, dtype=np.int32)
-    for row, s in enumerate(symbols):
-        sym_plane[s] = row
-        w, p = _plane(bwt == s)
-        planes.append(w)
-        pres.append(p)
-        totals.append(p[-1] + _popcount32(w[-1]))
+    W = (bwt.shape[0] + 31) // 32
+    words = torch.empty((len(symbols), W), dtype=_I32, device=dev)
+    pres = torch.empty((len(symbols), W), dtype=_I32, device=dev)
     counts = torch.zeros(256, dtype=_I32, device=dev)
-    counts[torch.tensor(symbols, dtype=torch.int64, device=dev)] = \
-        torch.stack(totals)
+    for row, s in enumerate(symbols):
+        w, p = _plane(bwt == s)
+        words[row] = _u32_as_i32(w)
+        pres[row] = p
+        counts[s] = p[-1] + _popcount32(w[-1])
     c = torch.cat([counts.new_zeros(1), cumsum_i32(counts)])
-    return (_u32_as_i32(torch.cat(planes)), torch.cat(pres), c,
-            torch.from_numpy(sym_plane).to(dev))
+    return (words.view(-1), pres.view(-1), c, _sym_plane(symbols, dev))
+
+
+def _histogram_c(bwt: torch.Tensor) -> torch.Tensor:
+    """c (int32 [257]) from a histogram of the BWT, without the planes."""
+    counts = torch.bincount(bwt, minlength=256).to(_I32)
+    return torch.cat([counts.new_zeros(1), cumsum_i32(counts)])
+
+
+def n_planes(block: DeviceFMBlock) -> int:
+    """The block's alphabet size: its plane rows, built or not."""
+    return int((block.sym_plane >= 0).sum())
+
+
+def _need_planes(block: DeviceFMBlock, what: str) -> None:
+    if block.n and block.plane_words.shape[0] == 0:
+        raise ValueError(f"{what} reads the bit planes, which this block was "
+                         "lifted without (device_block_from_fm(..., "
+                         "planes=False))")
 
 
 def build_device_block(bwt: torch.Tensor, sa: torch.Tensor, sf: int,
@@ -288,15 +326,22 @@ def build_device_block(bwt: torch.Tensor, sa: torch.Tensor, sf: int,
 
 def build_device_block_parts(bwt: torch.Tensor, mark_rows: torch.Tensor,
                              perm: torch.Tensor, wrap_row: int, sf: int,
-                             symbols: tuple[int, ...]) -> DeviceFMBlock:
+                             symbols: tuple[int, ...],
+                             planes: bool = True) -> DeviceFMBlock:
     """Query state on the BWT's device from the decode-path parts: the BWT
     plus the .gcx sampled rows (int32, ascending) and sampled values >> sf
     (int32, row order); no suffix array (reference
-    `build_device_block_parts_jit`)."""
+    `build_device_block_parts_jit`).  planes=False leaves the bit planes
+    empty and takes c from a histogram (decode reads no plane)."""
     dev = bwt.device
     n = bwt.shape[0]
     m = perm.shape[0]
-    words, pres, c, sym_plane = _symbol_planes(bwt, symbols)
+    if planes:
+        words, pres, c, sym_plane = _symbol_planes(bwt, symbols)
+    else:
+        words = torch.zeros(0, dtype=_I32, device=dev)
+        pres = torch.zeros(0, dtype=_I32, device=dev)
+        c, sym_plane = _histogram_c(bwt), _sym_plane(symbols, dev)
     marked = torch.zeros(n, dtype=torch.uint8, device=dev)
     marked[mark_rows.long()] = 1
     mark_words, mark_pre = _plane(marked)
@@ -311,16 +356,15 @@ def build_device_block_parts(bwt: torch.Tensor, mark_rows: torch.Tensor,
         sf=int(sf), **_no_tables(dev))
 
 
-def device_block_from_fm(fm, device) -> DeviceFMBlock:
+def device_block_from_fm(fm, device, planes: bool = True) -> DeviceFMBlock:
     """Lift a host FMIndex (gecoz_tpu.index.fm) onto `device`: the BWT
     (decoded on the host) and the two .gcx arrays go up, planes, marks and
-    c are built there."""
+    c are built there.  Any alphabet, up to all 256 byte values; the
+    planes cost about sigma/4 bytes a character, and planes=False (the
+    decode lift) skips them."""
     fm._require_index()
     counts = fm.hswt.symbol_counts()
     symbols = tuple(int(x) for x in np.flatnonzero(counts))
-    if len(symbols) > MAX_PLANES:
-        raise ValueError(f"alphabet of {len(symbols)} symbols exceeds the "
-                         "plane engine; use the host FMIndex path")
     rows, _ = fm.index.sampled_rows()
     dev = torch.device(device)
 
@@ -329,7 +373,7 @@ def device_block_from_fm(fm, device) -> DeviceFMBlock:
     return build_device_block_parts(
         up(fm.bwt, np.uint8), up(np.sort(rows), np.int32),
         up(fm.index.wsa.perm, np.int32), int(fm.wrap_row),
-        int(fm.index.sampling_factor), symbols)
+        int(fm.index.sampling_factor), symbols, planes)
 
 
 # -- LF mapping and its tables -----------------------------------------------
@@ -407,7 +451,9 @@ def with_lf_table(block: DeviceFMBlock, decode: bool = True) -> DeviceFMBlock:
     walk needs one read per step.  With decode=True the fused k-step
     decode table is also built: LF^k plus the k symbols emitted along the
     way.  k = 16 (12-byte rows) when the sampling rate divides by 16, 8
-    when it divides by 8, else 4; locate-only callers pass decode=False.
+    when it divides by 8, as 4-bit plane codes, so only for blocks of up
+    to `CODE_PLANES` planes; else k = 4, the symbols as bytes (any
+    alphabet).  Locate-only callers pass decode=False.
     """
     n = block.n
     if n == 0 or block.has_lf:
@@ -427,9 +473,9 @@ def with_lf_table(block: DeviceFMBlock, decode: bool = True) -> DeviceFMBlock:
     # permutation composition lf[lf[i]] by direct gather; the codes of the
     # steps taken ride along the same gathers (q = codes[lf])
     rate = 1 << block.sf
-    if rate % 8 == 0:
-        # eight 4-bit PLANE codes per word (sigma <= 16), decoded back to
-        # bytes through a 16-entry map in the walk
+    if rate % 8 == 0 and n_planes(block) <= CODE_PLANES:
+        # eight 4-bit PLANE codes per word, decoded back to bytes through a
+        # 16-entry map in the walk
         pc = _gather(block.sym_plane, block.bwt.to(_I32)).clamp(min=0)
         lf2, c2 = _gather(lf, lf), pc | (_gather(pc, lf) << 4)
         del pc
@@ -444,7 +490,9 @@ def with_lf_table(block: DeviceFMBlock, decode: bool = True) -> DeviceFMBlock:
                        lfk_k=8)
     sym = block.bwt.to(_I32)
     lf2, s2 = _gather(lf, lf), sym | (_gather(sym, lf) << 8)
+    del sym, lf
     lf4, s4 = _gather(lf2, lf2), s2 | (_gather(s2, lf2) << 16)
+    del lf2, s2
     return replace(block, lf_tab=tab, lfk_tab=torch.stack([lf4, s4], 1),
                    lfk_k=4)
 
@@ -465,6 +513,7 @@ def lf_batch(block: DeviceFMBlock, idx: torch.Tensor) -> torch.Tensor:
     """Corrected LF mapping for rows `idx` (batched)."""
     if block.has_lf:
         return _lf_next(block, idx)
+    _need_planes(block, "lf_batch without the fused LF table")
     syms = block.bwt[idx.long()].to(_I32)
     occ = occ_inclusive(block, syms, idx)       # inclusive, >= 1
     plain = block.c[syms.long()] + occ - 1
@@ -487,7 +536,9 @@ def with_kmer_table(block: DeviceFMBlock, k: int | None = None
     """
     if block.n == 0 or block.has_kmer:
         return block
+    _need_planes(block, "with_kmer_table")
     nplanes = block.plane_words.shape[0] // max(block.W, 1)
+    # 5-8 bits a code past 16 planes: k <= cap // bits keeps bits * k <= 24
     bits = max(1, (nplanes - 1).bit_length())
     if k is None:
         # table capped at ~2^19 rows for small blocks, 2^24 for blocks
@@ -521,10 +572,11 @@ def with_rank_blocks(block: DeviceFMBlock) -> DeviceFMBlock:
     past W.  Kernel K1 then reads one aligned 32-byte block per occ lookup;
     the flat planes stay for every other reader.  A strided gather of the
     prefixes and a cat with the words; about sigma * 32 / 224 bytes a
-    character (0.86 at sigma = 6)."""
+    character (0.86 at sigma = 6, 36.6 at sigma = 256)."""
     W = block.W
     if block.n == 0 or block.has_rank_blocks:
         return block
+    _need_planes(block, "with_rank_blocks")
     per = fmsearch.BLOCK_CHARS // 32                 # words a block: 7
     nplanes = block.plane_words.shape[0] // W
     wb = -(-W // per)                                # = ceil(n / 224)
@@ -596,9 +648,13 @@ def _row_with_sa(block: DeviceFMBlock, value: torch.Tensor) -> torch.Tensor:
     return block.mark_rows[j.long()]
 
 
-def code_map(block: DeviceFMBlock, size: int = 16) -> torch.Tensor:
-    """uint8 [size]: the byte whose plane row is r (0 where none is)."""
+def code_map(block: DeviceFMBlock, size: int = CODE_PLANES) -> torch.Tensor:
+    """uint8 [size]: the byte whose plane row is r (0 where none is).
+    Raises when the block has more planes than `size` codes."""
     live = torch.nonzero(block.sym_plane >= 0).flatten()
+    if live.shape[0] > size:
+        raise ValueError(f"code_map: {live.shape[0]} planes do not fit "
+                         f"{size} codes")
     out = torch.zeros(size, dtype=torch.uint8, device=live.device)
     out[block.sym_plane[live].long()] = live.to(torch.uint8)
     return out
@@ -648,8 +704,10 @@ def decode_text(block: DeviceFMBlock) -> torch.Tensor:
                                  + 1) * rate)
     k = block.lfk_steps
     if W and block.has_lfk and rate % k == 0:
+        # k = 16 and 8 rows hold plane codes; k = 4 rows hold the bytes
+        cmap = code_map(block) if k in (8, 16) else None
         out = lfwalk.decode_walks(block.lfk_tab, seeds, rate, f"lfk{k}",
-                                  code_map=code_map(block))
+                                  code_map=cmap)
     elif W:
         out = _walks(block, seeds, rate)
     else:

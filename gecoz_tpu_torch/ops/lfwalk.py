@@ -12,7 +12,8 @@ version beside it:
 
 On CUDA tensors they launch the hand-written Hopper kernel
 (`csrc/lfwalk.cu`, built at first use, its kernels loaded by `_lib()`) and
-add one to their count in `LAUNCHES`; a failed build or launch raises.
+add one to their count in `LAUNCHES` (a decode launch also to its row
+mode's in `DECODE_LAUNCHES`); a failed build or launch raises.
 On CPU tensors they run the plain versions (`decode_walks_ref`,
 `locate_walks_ref`), which the card is also checked against.  uint32 rows
 are held in int32 tensors with the same bits; bit 31 of an `lf_tab` row
@@ -36,13 +37,16 @@ MODES = {"lfk16": (16, 3), "lfk8": (8, 2), "lfk4": (4, 2),
 _MODE_ID = {"lfk16": 0, "lfk8": 1, "lfk4": 2, "packed": 3, "plain": 4}
 _CHUNK = 32             # bytes a walk the lfk kernel stages at a time
 
-# launches of the CUDA kernel per entry point; plain versions never count
+# launches of the CUDA kernel per entry point, and the decode launches per
+# row mode; plain versions never count
 LAUNCHES: dict[str, int] = {"decode": 0, "locate": 0}
+DECODE_LAUNCHES: dict[str, int] = {mode: 0 for mode in MODES}
 
 
 def reset_launches() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    for counts in (LAUNCHES, DECODE_LAUNCHES):
+        for name in counts:
+            counts[name] = 0
 
 
 _LIB: ctypes.CDLL | None = None
@@ -175,7 +179,8 @@ def decode_walks(tab: torch.Tensor, seeds: torch.Tensor, rate: int,
 
     `mode` names the rows of `tab`: "lfk16"/"lfk8"/"lfk4" read the fused
     k-step `lfk_tab` (int32 [n, 3] or [n, 2]; rate % k == 0; the plane
-    codes of lfk16/lfk8 map back to bytes through `code_map`, uint8 [16]),
+    codes of lfk16/lfk8 map back to bytes through `code_map`, uint8 [16];
+    lfk4 rows hold the bytes, any alphabet, and read no map),
     "packed" and "plain" the per-step `lf_tab` (int32 [n]; plain reads the
     symbol from `bwt`)."""
     _check_decode(tab, seeds, rate, mode, bwt, code_map)
@@ -186,6 +191,7 @@ def decode_walks(tab: torch.Tensor, seeds: torch.Tensor, rate: int,
     out = _decode_launch(tab, seeds, rate, mode, bwt, code_map)
     if seeds.shape[0]:
         LAUNCHES["decode"] += 1
+        DECODE_LAUNCHES[mode] += 1
     return out
 
 

@@ -416,6 +416,98 @@ def test_decompress_and_search_on_card_equal_host_tier(cuda, gen, tmp_path):
     assert fmsearch.LAUNCHES["fm_search"] > 0 and lfwalk.LAUNCHES["decode"] > 0
 
 
+def _wide_block(cuda, gen, sigma, sf):
+    """A block of 60,000 bytes over `sigma` symbols (the terminator one of
+    them): the 20 amino acids and X, or every byte value."""
+    if sigma == 256:
+        s = gen.integers(1, 256, 60000).astype(np.uint8)
+    else:
+        s = gen.choice(np.frombuffer(b"ACDEFGHIKLMNPQRSTVWYX"[:sigma - 1],
+                                     np.uint8), size=60000)
+    s[::397] = 0
+    s[-1] = 0
+    syms = tuple(int(x) for x in np.unique(s))
+    assert len(syms) == sigma
+    return s, index_block(torch.from_numpy(s).to(cuda), sf=sf, symbols=syms)
+
+
+@pytest.mark.parametrize("sigma", [21, 256])
+@pytest.mark.parametrize("sf", [5, 3, 2])
+def test_wide_alphabet_kernels_match_plain(cuda, gen, sigma, sf):
+    """Past 16 planes: the byte-row decode walks (lfk4), the decode and
+    locate of the path, and K1 on the rank table with and without the
+    k-mer table (5 or 8 bits a code), against the plain versions."""
+    s, blk = _wide_block(cuda, gen, sigma, sf)
+    blk = fmq.with_lf_table(blk)
+    assert blk.lfk_k == 4
+    rate = 1 << sf
+    seeds = torch.from_numpy(gen.integers(0, blk.n, 5000).astype(
+        np.int32)).to(cuda)
+    before = lfwalk.LAUNCHES["decode"]
+    got = lfwalk.decode_walks(blk.lfk_tab, seeds, rate, "lfk4")
+    torch.cuda.synchronize()
+    assert lfwalk.LAUNCHES["decode"] == before + 1
+    assert torch.equal(got, lfwalk.decode_walks_ref(blk.lfk_tab, seeds, rate,
+                                                    "lfk4"))
+    assert np.array_equal(fmq.decode_text(blk).cpu().numpy(), s)
+    sa = suffix_array_numpy(s)
+    rows = seeds[:2000]
+    assert np.array_equal(fmq.locate_batch(blk, rows).cpu().numpy(),
+                          sa[rows.cpu().numpy()])
+    starts = gen.integers(0, len(s) - 60, size=3000)
+    lens = gen.integers(1, 50, size=3000)
+    pats = [bytes(s[a:a + n]) for a, n in zip(starts, lens)]
+    pats += [bytes(gen.integers(1, 256, 7).astype(np.uint8)), b"\0"]
+    arr, ln = _pack(pats)
+    a, n = torch.from_numpy(arr).to(cuda), torch.from_numpy(ln).to(cuda)
+    for block in map(fmq.with_rank_blocks, (blk, fmq.with_kmer_table(blk))):
+        before = fmsearch.LAUNCHES["fm_search"]
+        got = fmq.search_batch(block, a, n)
+        torch.cuda.synchronize()
+        assert fmsearch.LAUNCHES["fm_search"] == before + 1
+        want = fmsearch.backward_search_ref(block, a, n)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert block.kmer_bits == (5 if sigma == 21 else 8)
+
+
+def test_protein_decompress_and_search_on_card_equal_host_tier(cuda, gen,
+                                                               tmp_path,
+                                                               capsys):
+    """A protein FASTA (21 symbols) through the port's CLI on the card:
+    the files, the decompressed FASTA and the GFF3 rows equal the host
+    tier's, and the decode launched the byte-row walks."""
+    from gecoz_tpu_torch import cli
+    aa = np.frombuffer(b"ACDEFGHIKLMNPQRSTVWY", np.uint8)
+    seqs = [gen.choice(aa, size=n) for n in (40000, 3000, 351)]
+    fa, qf = tmp_path / "p.fa", tmp_path / "q.fa"
+    with open(fa, "wb") as f:
+        for i, q in enumerate(seqs):
+            f.write(b">sp|P%05d|X\n" % i + q.tobytes() + b"\n")
+    with open(qf, "wb") as f:
+        for i in range(50):
+            a = int(gen.integers(0, 30000))
+            f.write(b">q%d\n" % i + seqs[0][a:a + 8 + i % 43].tobytes()
+                    + b"\n")
+    outs = {}
+    for tier in (["--device", str(cuda)], ["--backend", "native"]):
+        gcz = tmp_path / f"{tier[1][:4]}.gcz"
+        back = tmp_path / f"{tier[1][:4]}.fa"
+        lfwalk.reset_launches()
+        fmsearch.reset_launches()
+        assert cli.main(["-i", str(fa), "-o", str(gcz)] + tier) == 0
+        assert cli.main(["-i", str(gcz), "-o", str(back)] + tier) == 0
+        capsys.readouterr()
+        assert cli.main(["-i", str(gcz), "-s", str(qf)] + tier) == 0
+        outs[tier[0]] = (gcz.read_bytes(), gcz.with_suffix(".gcx")
+                         .read_bytes(), back.read_bytes(),
+                         capsys.readouterr().out)
+        if tier[0] == "--device":
+            assert lfwalk.DECODE_LAUNCHES["lfk4"] > 0
+            assert fmsearch.LAUNCHES["fm_search"] > 0
+    assert outs["--device"] == outs["--backend"]
+    assert outs["--device"][3].count("\n") >= 50
+
+
 @pytest.mark.parametrize("D", [8, 6])
 def test_sharded_sa_on_a_virtual_mesh(cuda, gen, D, monkeypatch):
     """The sharded suffix sort over (cuda:0,) * D at 1 MiB, both impls,
