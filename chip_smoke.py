@@ -99,8 +99,18 @@ Phases (any mismatch or exception exits non-zero):
     tables' peak; a 4 MiB block of all 256 byte values encoded on the
     card, decoded by the decompress path and searched (K1 against its
     plain version, located hits at their pattern's bytes), with the
-    decode and search peaks.  The launches of each run are printed.  The
-    total time is printed last.
+    decode and search peaks.  The launches of each run are printed;
+13. (run last) files of short blocks, whose sampling factor the
+    reference's reader derives wrong (ROADMAP C5) and whose suffix array
+    its SA-IS can get wrong (C6): one-record files of every block length
+    from 1 to 120 at rate 32 and files of 50 x 40-mers, 100 x 36, 100 x
+    100 and 100 x 101 bases (each record a block of its own) through the
+    port's CLI on the card: the .gcz/.gcx against the CLI's host tier
+    (`--backend native`), the decompressed records against the input,
+    GFF3 rows at the default budget and at 1 B against a plain byte
+    search, `--check --deep`; then K2's decode (fused and per-step rows)
+    and locate and K1 on eight of these blocks against their plain
+    versions, bit-exact, and timed.  The total time is printed last.
 
 The port stands alone: an import hook refuses JAX and gecoz_tpu, and the
 oracles are the port's host copies (tests/test_torch_host_copies.py holds
@@ -108,8 +118,9 @@ them equal to gecoz_tpu's on the CPU) or plain computations on the
 genome.  The last line is {"ok": true, "device": {...}}; the line before
 it lists the kernels of the paths with their launches in the runs through
 the CLI (the scan's max and reverse min: in phase 10's 64 MiB sharded
-sort; K2's byte rows: in phase 12's 64 MiB protein decompress), their
-times, bounds and library calls.
+sort; K2's byte rows: in phase 12's 64 MiB protein decompress; each
+kernel's count adds phase 13's runs), their times, bounds and library
+calls.
 """
 
 from __future__ import annotations
@@ -1835,6 +1846,185 @@ def phase_wide_alphabets(dev, workdir):
     return sp_runs, big_runs, err, times, bounds, rr_bounds
 
 
+# phase 13: files of short blocks (ROADMAP C5, C6)
+SHORT_BAND = range(1, 121)     # one-record block lengths (the terminator
+                               # included) at the default rate, 32
+SHORT_FILES = (("probes_50x40", 50, 40), ("reads_100x36", 100, 36),
+               ("reads_100x100", 100, 100), ("reads_100x101", 100, 101))
+SHORT_KERNEL_BLOCKS = ("band2", "band33", "band41", "band64", "band65",
+                       "band97", "band120", "reads_100x101")
+SHORT_KERNELS = ("fm_search", "lf_walk.decode", "lf_walk.locate")
+
+
+def short_queries(rng, recs, path) -> None:
+    """Queries of a short-block file: a homopolymer, a pattern longer than
+    any block (K1 past the block), and six substrings of the records of
+    1-24 bases."""
+    seqs = [s for _, s in recs if len(s)]
+    longest = max((len(s) for s in seqs), default=0)
+    out = [(b"homo", b"AAAAAAAA"), (b"long", b"ACGT" * (longest // 4 + 2))]
+    for i in range(6 if seqs else 0):
+        s = seqs[int(rng.integers(0, len(seqs)))]
+        ln = int(rng.integers(1, min(24, len(s)) + 1))
+        a = int(rng.integers(0, len(s) - ln + 1))
+        out.append((b"q%d" % i, s[a:a + ln].tobytes()))
+    with open(path, "wb") as f:
+        f.write(b"".join(b">" + h + b"\n" + q + b"\n" for h, q in out))
+
+
+def short_file(dev, workdir, label, recs, rng, runs) -> str:
+    """One short-block file through the port's CLI on the card: its
+    .gcz/.gcx against the CLI's host tier (`--backend native`, the host
+    library's SA-IS), its decompress against the records, GFF3 rows at the
+    default budget (locate table) and at 1 B (LF walks) against a plain
+    byte search, and `--check --deep`.  Each card run's launches (counts
+    set to 0 just before it, read just after) are added to `runs`."""
+    import torch
+    from gecoz_tpu_torch import cli
+    from gecoz_tpu_torch.formats.fasta import iter_fasta
+    fa, qf, gcz, host, back = (os.path.join(workdir, f"{label}.{e}") for e in
+                               ("fa", "q.fa", "gcz", "host.gcz", "back.fa"))
+    write_fasta(fa, recs)
+    short_queries(rng, recs, qf)
+
+    def on_card(argv, stdout=False, budget=None):
+        if budget:
+            os.environ["GECOZ_HBM_BYTES"] = budget
+        reset_counts()                        # the path starts
+        try:
+            argv = argv + ["--device", str(dev)]
+            out = cli_out(cli.main, argv) if stdout else cli.main(argv)
+            torch.cuda.synchronize()
+        finally:
+            os.environ.pop("GECOZ_HBM_BYTES", None)
+        for k, v in counts().items():         # ... and ends here
+            runs[k] = runs.get(k, 0) + v
+        check(stdout or out == 0, f"{label}: port CLI {argv} exit code {out}")
+        return out
+
+    on_card(["-i", fa, "-o", gcz])
+    check(cli.main(["-i", fa, "-o", host, "--backend", "native"]) == 0,
+          f"{label}: host tier compress failed")
+    for ext in ("gcz", "gcx"):
+        check(open(gcz[:-3] + ext, "rb").read()
+              == open(host[:-3] + ext, "rb").read(),
+              f"{label}: .{ext} differs from the host tier's")
+    on_card(["-i", gcz, "-o", back])
+    got = sorted((r.header, bytes(r.data)) for r in iter_fasta(back))
+    check(got == sorted((h, s.tobytes()) for h, s in recs),
+          f"{label}: decompressed records differ from the input")
+    want = gff_plain(gcz, recs, qf)
+    for budget in (None, "1"):
+        check(on_card(["-i", gcz, "-s", qf], True, budget) == want,
+              f"{label}: GFF3 rows (budget {budget}) differ from a plain "
+              "byte search")
+    lines = cli_out(cli.main, ["-i", gcz, "--check", "--deep"]).splitlines()
+    check(bool(lines) and all(x.endswith(": ok") for x in lines),
+          f"{label}: --check --deep: {lines}")
+    return gcz
+
+
+def short_kernels(dev, gcz, label, err, times) -> None:
+    """K2's decode (fused rows, and the per-step rows of the tail walk)
+    and locate (every row of the block) and K1 (the file's queries on
+    both strands) on the first block of `gcz`, each against its plain
+    version, bit-exact, and timed."""
+    import torch
+    from gecoz_tpu_torch.formats.fasta import iter_fasta
+    from gecoz_tpu_torch.formats.gcz import GecozReader
+    from gecoz_tpu_torch.ops import fmq, fmsearch, lfwalk
+    from gecoz_tpu_torch.tools import batch_search
+    from gecoz_tpu_torch.tools.driver import _COMPLEMENT
+    reader = GecozReader(gcz)
+    fm = reader.read(reader.headers[0])
+    n = fm.length
+    blk = fmq.with_lf_table(fmq.device_block_from_fm(fm, dev, planes=False))
+    rate = 1 << blk.sf
+    W, tail = (n - 1) // rate, (n - 1) % rate
+    tag = f"short {label} n={n}"
+    if W:
+        seeds = fmq._row_with_sa(blk, (torch.arange(
+            W, dtype=torch.int32, device=dev) + 1) * rate)
+        mode, cmap = f"lfk{blk.lfk_k}", fmq.code_map(blk)
+        timed_pair("lf_walk.decode",
+                   lambda: lfwalk.decode_walks(blk.lfk_tab, seeds, rate, mode,
+                                               code_map=cmap),
+                   lambda: lfwalk.decode_walks_ref(blk.lfk_tab, seeds, rate,
+                                                   mode, code_map=cmap),
+                   5, err, times, f"lf_walk.decode {mode} {tag}")
+    if tail:
+        zero = torch.zeros(1, dtype=torch.int32, device=dev)
+        mode = "packed" if blk.lf_packed else "plain"
+        timed_pair("lf_walk.decode",
+                   lambda: lfwalk.decode_walks(blk.lf_tab, zero, tail, mode,
+                                               bwt=blk.bwt),
+                   lambda: lfwalk.decode_walks_ref(blk.lf_tab, zero, tail,
+                                                   mode, bwt=blk.bwt),
+                   5, err, times, f"lf_walk.decode {mode} tail {tag}")
+    sblk = fmq.with_rank_blocks(fmq.with_kmer_table(
+        fmq.device_block_from_fm(fm, dev)))
+    lblk = fmq.with_lf_table(sblk, decode=False)
+    rows = torch.arange(n, dtype=torch.int32, device=dev)
+    args = (lblk.lf_tab, rows, lblk.mark_words, lblk.mark_pre, lblk.ssa_perm,
+            lblk.sf, lblk.lf_packed)
+    vals = timed_pair("lf_walk.locate", lambda: lfwalk.locate_walks(*args),
+                      lambda: lfwalk.locate_walks_ref(*args), 5, err, times,
+                      f"lf_walk.locate {tag}")[0]
+    check(sorted(vals.tolist()) == list(range(n)), f"{tag}: located rows are "
+          "not a permutation of the block")
+    pats = []
+    for q in iter_fasta(gcz[:-3] + "q.fa"):
+        seq = bytes(q.data)
+        pats += [seq, seq[::-1].translate(_COMPLEMENT)]
+    arr, ln = batch_search.pack_patterns(pats)
+    a, lens = torch.from_numpy(arr).to(dev), torch.from_numpy(ln).to(dev)
+    timed_pair("fm_search", lambda: fmq.search_batch(sblk, a, lens),
+               lambda: fmsearch.backward_search_ref(sblk, a, lens), 5, err,
+               times, f"fm_search {len(pats)}x{arr.shape[1]} {tag}")
+
+
+def phase_short_blocks(dev, workdir):
+    """Phase 13: files of short blocks (reads, probes, primers), whose
+    sampling factor the reference's reader derives wrong (ROADMAP C5) and
+    whose suffix arrays its SA-IS gets wrong (C6): one-record files of
+    every block length in SHORT_BAND and four files of short reads and
+    probes, each record a block of its own, through the port's CLI on the
+    card against ground truth; then the query kernels at these shapes
+    against their plain versions.  Returns the launches of the CLI runs
+    and the kernels' errors."""
+    import numpy as np
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(43)
+    acgt = np.frombuffer(b"ACGT", np.uint8)
+    files = [(f"band{n}", [("r1", rng.choice(acgt, n - 1))])
+             for n in SHORT_BAND]
+    files += [(label, [(f"{label[:5]}{i}", rng.choice(acgt, ln))
+                       for i in range(count)])
+              for label, count, ln in SHORT_FILES]
+    runs, err, times, paths = {}, {}, {}, {}
+    for label, recs in files:
+        t0 = time.perf_counter()
+        paths[label] = short_file(dev, workdir, label, recs, rng, runs)
+        if not label.startswith("band"):
+            print(f"# {label}: compress, decompress, GFF3 at two budgets and "
+                  f"--check --deep in {time.perf_counter() - t0:.2f} s")
+    print(f"# short blocks: {len(files)} files ({len(SHORT_BAND)} one-record "
+          f"files of block lengths {SHORT_BAND[0]}-{SHORT_BAND[-1]} at rate "
+          "32, four files of short reads and probes) through the port's CLI "
+          "on the card: .gcz/.gcx equal to the host tier's, decompressed "
+          "records equal to the input, GFF3 rows at both budgets equal to a "
+          "plain byte search, --check --deep ok; "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    print(f"# launches during the short-block runs: {json.dumps(runs)}")
+    for name in SHORT_KERNELS:
+        check(runs.get(name, 0) > 0, f"{name} was not launched by the "
+              "short-block runs")
+    for label in SHORT_KERNEL_BLOCKS:
+        short_kernels(dev, paths[label], label, err, times)
+    print(f"# phase 13 (short blocks): {time.perf_counter() - t_phase:.1f} s")
+    return runs, err
+
+
 def sharded_run(label, s, mesh, impl, want=None, again=False):
     """One sharded suffix sort of `s` over `mesh`, timed, with its peak
     device memory, distributed sorts and exchange rounds, and the scan
@@ -1984,6 +2174,7 @@ def main() -> int:
         slaunches = phase_search(dev, work, os.path.join(work, "port.gcz"))
         _, wruns, werr, wtimes, wbounds, wrr = phase_wide_alphabets(dev, work)
         phase_tools(dev, work)
+        short_runs, serr = phase_short_blocks(dev, work)
     loaded = [m for m in sys.modules if m.split(".")[0] in REFUSED]
     check(not loaded, f"{loaded} were imported")
     print(f"# all phases passed; total time {time.perf_counter() - t_all:.1f}"
@@ -1994,7 +2185,8 @@ def main() -> int:
         ms, plain = times[(name, 64 * MiB)]
         return {"name": name, "route": "cuda",
                 "source": "gecoz_tpu_torch/csrc/scan.cu",
-                "replaces": REPLACES, "launches": run[name],
+                "replaces": REPLACES,
+                "launches": run[name] + short_runs.get(name, 0),
                 "max_abs_err": err[name], "ms": ms, "plain_ms": plain,
                 "bound_ms": bound_ms(8 * (64 * MiB + 12345)),
                 "bound_by": "bytes",
@@ -2008,7 +2200,7 @@ def main() -> int:
                                "lf_walk.locate 2^20 rows 64 MiB"),
             "lf_walk.decode.lfk4": (wruns["decompress"],
                                     "lf_walk.decode lfk4 64 MiB")}
-    for k, e in werr.items():
+    for k, e in list(werr.items()) + list(serr.items()):
         qerr[k] = max(qerr.get(k, 0), e)
     qtimes.update(wtimes)
     qbounds.update(wbounds)
@@ -2018,7 +2210,8 @@ def main() -> int:
         run, key = runs[name]
         ms, plain = qtimes[key]
         out = {"name": name, "route": "cuda", "source": source,
-               "replaces": replaces, "launches": run[name],
+               "replaces": replaces,
+               "launches": run[name] + short_runs.get(name, 0),
                "max_abs_err": qerr[name], "ms": ms, "plain_ms": plain,
                "bound_ms": bound_ms(qbounds[key]), "bound_by": "bytes",
                "library_ms": None}

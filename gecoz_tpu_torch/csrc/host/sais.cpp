@@ -125,14 +125,13 @@ void sais(const T* s, int32_t* sa, int32_t n, int32_t sigma) {
     if (j > 0 && is_s(j) && !is_s(j - 1)) sa[nlms++] = j;
   }
   if (nlms == 0) {
-    // no LMS: the string is monotone non-increasing; one L pass places all
+    // no LMS: a run of S-type suffixes at position 0 (never LMS) and then
+    // a non-increasing L-type tail.  The virtual sentinel is the only LMS
+    // suffix: the L pass places the tail, the S pass the run.  (The
+    // reference's copy runs the L pass alone and leaves the run's slots
+    // at -1: ROADMAP C6.)
     std::memset(sa, -1, sizeof(int32_t) * (size_t)n);
-    reset_starts();
-    sa[bptr[s[n - 1]]++] = n - 1;
-    for (int32_t i = 0; i < n; ++i) {
-      int32_t j = sa[i];
-      if (j > 0) sa[bptr[s[j - 1]]++] = j - 1;
-    }
+    induce();
     return;
   }
 

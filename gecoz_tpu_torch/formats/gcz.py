@@ -12,7 +12,8 @@ changed only), so the bytes are the reference's:
   table (byte aligned) | HSWT nodes pre-order]; `.gcx`: [ssa header | rank
   vector | index wavelet tree].
 * GecozFileReader.java:58-200 — chained header scan; sampling factor
-  re-derived from total `.gcx` size (140-149).
+  re-derived from total `.gcx` size (140-149) and, unlike the reference,
+  from each block's mark count as well (ROADMAP C5).
 
 `encode_block` is one block through the device-state route of
 `parallel/mesh.py::encode_blocks`: the suffix sort, the BWT, the sampled
@@ -27,6 +28,7 @@ from __future__ import annotations
 
 import struct
 from dataclasses import dataclass
+from itertools import accumulate
 from pathlib import Path
 
 import numpy as np
@@ -34,6 +36,7 @@ import torch
 
 from gecoz_tpu_torch.index.fm import FMIndex
 from gecoz_tpu_torch.index.hswt import HSWT
+from gecoz_tpu_torch.index.rankbv import interleaved_total_ones, rbv_bytes
 from gecoz_tpu_torch.index.shape import HSWTShape
 from gecoz_tpu_torch.index.ssa import SampledSAIndex, index_size
 from gecoz_tpu_torch.ops.sa import bwt_from_sa, suffix_array
@@ -240,18 +243,38 @@ class GecozReader:
         self.sampling_factor = self._derive_sampling_factor()
 
     def _derive_sampling_factor(self) -> int | None:
-        """GecozFileReader.java:134-149."""
+        """GecozFileReader.java:134-149, repaired (ROADMAP C5).
+
+        The `.gcx` does not store the factor.  The reference takes the
+        first one whose index sizes fit the file; but where every block is
+        short, two factors can give the same sizes (an IndexWaveletTree
+        of 2 samples is as long as one of 3), and the smaller one then
+        reads more values than there are marks.  Here each factor that
+        fits is also held to the marks: a block's mark vector comes first
+        in its payload, sized by the block length alone, and must hold
+        ceil(n / 2^sf) ones.  Factors that pass only because every block
+        has one sample give the same arrays; none passing refuses the
+        file.  Sets `ssa_offsets`, each block's `.gcx` offset."""
         if self.ssa_data is None:
             return None
         data_len = len(self.ssa_data) - len(self.headers) * SSA_HEADER_LEN
-        sf = -1
-        while True:
-            sf += 1
-            total = sum(index_size(h.len, sf) for h in self.headers)
-            if data_len >= total:
+        for sf in range(42):
+            sizes = [index_size(h.len, sf) for h in self.headers]
+            if data_len < sum(sizes):
+                continue
+            offsets = list(accumulate((SSA_HEADER_LEN + s for s in sizes[:-1]),
+                                      initial=0))
+            if all(self._marks(off, h.len) == (h.len + (1 << sf) - 1) >> sf
+                   for off, h in zip(offsets, self.headers)):
+                self.ssa_offsets = offsets
                 return sf
-            if sf > 40:
-                raise ValueError("cannot derive sampling factor")
+        raise ValueError("cannot derive sampling factor")
+
+    def _marks(self, ssa_pos: int, n: int) -> int:
+        """One-count of the mark vector of the n-row block at `ssa_pos`."""
+        pos = ssa_pos + SSA_HEADER_LEN
+        return interleaved_total_ones(self.ssa_data[pos:pos + rbv_bytes(n)],
+                                      n)
 
     def find_block(self, header: str) -> RefBlockHeader | None:
         for h in self.headers:
@@ -260,7 +283,9 @@ class GecozReader:
         return None
 
     def read(self, bheader: RefBlockHeader) -> FMIndex:
-        i = self.headers.index(bheader)
+        # by identity: blocks of equal headers, length and size (reads
+        # that share a name) are equal dataclasses (ROADMAP C5)
+        i = next(k for k, h in enumerate(self.headers) if h is bheader)
         off = self.offsets[i] + bheader.header_length
         hswt = HSWT.read(self.ref_data[off:self.offsets[i] + bheader.size],
                          bheader.len)
@@ -271,11 +296,7 @@ class GecozReader:
             # we expose a count-only FM-index instead.
             return FMIndex(hswt, None)
         sf = self.sampling_factor
-        ssa_pos = 0
-        for h in self.headers:
-            if h is bheader:
-                break
-            ssa_pos += SSA_HEADER_LEN + index_size(h.len, sf)
+        ssa_pos = self.ssa_offsets[i]
         blen, hsh = parse_ssa_header(
             bytes(self.ssa_data[ssa_pos:ssa_pos + SSA_HEADER_LEN + len(REF_MAGIC)]), 0)
         if hsh != header_hash(bheader.headers):
@@ -283,7 +304,8 @@ class GecozReader:
         if blen != index_size(bheader.len, sf):
             raise ValueError("gcx block length mismatch")
         ssa = SampledSAIndex.deserialize(
-            self.ssa_data[ssa_pos + SSA_HEADER_LEN:], bheader.len, sf)
+            self.ssa_data[ssa_pos + SSA_HEADER_LEN:], bheader.len, sf,
+            name=", ".join(bheader.headers))
         return FMIndex(hswt, ssa)
 
     def check_format(self) -> bool:

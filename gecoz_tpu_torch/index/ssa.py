@@ -10,8 +10,9 @@ multiple of the sampling rate, followed by an IndexWaveletTree of the
 sampled values (>> sampling_factor) in row order.
 
 The sampling factor is *not* stored; readers recover it from file sizes
-(GSSAIndex.java:62-67, GecozFileReader.java:140-149) — handled by the gcz
-container layer.
+(GSSAIndex.java:62-67, GecozFileReader.java:140-149) and the mark counts
+(ROADMAP C5) — handled by the gcz container layer.  `sampled_rows`, the
+lift every decode reads, refuses marks and values that differ in count.
 """
 
 from __future__ import annotations
@@ -31,8 +32,9 @@ def index_size(sa_len: int, sampling_factor: int) -> int:
 class SampledSAIndex:
     def __init__(self, mark: RankBitVector, wsa: IndexWaveletTree | None,
                  sampling_factor: int, wsa_buf: np.ndarray | None = None,
-                 ssa_len: int | None = None):
+                 ssa_len: int | None = None, name: str = ""):
         self.mark = mark
+        self.name = name                 # the block's headers, for errors
         self._wsa = wsa
         self._wsa_buf = wsa_buf          # serialized IWT, decoded lazily
         self._ssa_len = ssa_len
@@ -82,13 +84,14 @@ class SampledSAIndex:
 
     @classmethod
     def deserialize(cls, buf: np.ndarray, sa_len: int,
-                    sampling_factor: int) -> "SampledSAIndex":
+                    sampling_factor: int, name: str = "") -> "SampledSAIndex":
         buf = np.frombuffer(buf, dtype=np.uint8) if not isinstance(buf, np.ndarray) else buf
         nb = rbv_bytes(sa_len)
         mark = RankBitVector.from_interleaved(buf[:nb], sa_len)
         ssa_len = (sa_len + (1 << sampling_factor) - 1) >> sampling_factor
         return cls(mark, None, sampling_factor,
-                   wsa_buf=buf[nb:nb + iwt_size(ssa_len)], ssa_len=ssa_len)
+                   wsa_buf=buf[nb:nb + iwt_size(ssa_len)], ssa_len=ssa_len,
+                   name=name)
 
     # -- queries (GSSAIndex.get / find) ------------------------------------
 
@@ -117,4 +120,9 @@ class SampledSAIndex:
             np.unpackbits(self.mark.data, count=self.mark.length,
                           bitorder="little"))
         values = self.wsa.perm << self.sampling_factor
+        if len(rows) != len(values):
+            raise ValueError(
+                f"block [{self.name}] of {self.mark.length} rows at sampling "
+                f"factor {self.sampling_factor}: {len(rows)} marked rows "
+                f"against {len(values)} sampled values")
         return rows, values
