@@ -100,7 +100,7 @@ Phases (any mismatch or exception exits non-zero):
     card, decoded by the decompress path and searched (K1 against its
     plain version, located hits at their pattern's bytes), with the
     decode and search peaks.  The launches of each run are printed;
-13. (run last) files of short blocks, whose sampling factor the
+13. (run after phase 11) files of short blocks, whose sampling factor the
     reference's reader derives wrong (ROADMAP C5) and whose suffix array
     its SA-IS can get wrong (C6): one-record files of every block length
     from 1 to 120 at rate 32 and files of 50 x 40-mers, 100 x 36, 100 x
@@ -110,7 +110,14 @@ Phases (any mismatch or exception exits non-zero):
     GFF3 rows at the default budget and at 1 B against a plain byte
     search, `--check --deep`; then K2's decode (fused and per-step rows)
     and locate and K1 on eight of these blocks against their plain
-    versions, bit-exact, and timed.  The total time is printed last.
+    versions, bit-exact, and timed;
+14. (run last) inputs the port refuses or answers on purpose (ROADMAP
+    C7-C9), through the port's CLI on the card: a query FASTA with empty
+    records (GFF3 rows equal to the `--backend numpy` tier's, none
+    malformed, none for the empty records, K1 launched) and one of empty
+    records only (no rows, no launch); `-c ""`, `--sampling 10`,
+    `--sampling 0` and a range extract from -5 exit 1 and write nothing.
+    The total time is printed last.
 
 The port stands alone: an import hook refuses JAX and gecoz_tpu, and the
 oracles are the port's host copies (tests/test_torch_host_copies.py holds
@@ -1159,11 +1166,14 @@ def phase_query_kernels(dev):
     gather(k_blk.rank_blocks, 1 << 22)
     per_ms32 = sector_gather(k_blk.rank_blocks, 1 << 22)
 
-    def k1_shape(key, pats, lens, reps, nbytes):
+    def k1_shape(key, pats, lens, host, reps, nbytes):
         """K1 at one shape: bit-exact, timed in turns with its plain
-        version, beside its first design, its sectors and its bounds."""
+        version, beside its first design, its sectors and its bounds.
+        `host` is the lengths' host copy, which the wrapper checks (as
+        `find_batched` passes it) without reading `lens` back."""
         got = timed_pair("fm_search",
-                         lambda: fmsearch.backward_search(k_blk, pats, lens),
+                         lambda: fmsearch.backward_search(k_blk, pats, lens,
+                                                          host),
                          lambda: fmsearch.backward_search_ref(k_blk, pats,
                                                               lens),
                          reps, err, times, key)
@@ -1198,7 +1208,8 @@ def phase_query_kernels(dev):
     lens = torch.full((B,), L, dtype=torch.int32, device=dev)
     # a pattern in, its 8-byte k-mer seed, then L - k steps of two occ
     # lookups (an 8-byte word and prefix each), sp and ep out
-    sp, ep = k1_shape("fm_search 2^20 16-mers", pats, lens, 10,
+    sp, ep = k1_shape("fm_search 2^20 16-mers", pats, lens,
+                      np.full(B, L, np.int32), 10,
                       B * (L + 4 + 8 + 8 + 16 * (L - k_blk.kmer_k)))
     # every 16-mer drawn from the text occurs (those across a separator
     # excepted: backward search steps through '\0' uncorrected)
@@ -1219,7 +1230,8 @@ def phase_query_kernels(dev):
     # every step counted: a reverse strand absent from the text stops
     # early, so this bound is an upper one
     steps = np.maximum(ln.astype(np.int64) - k_blk.kmer_k, 0)
-    sp, ep = k1_shape("fm_search 20,000 reads x 2 strands", pats, lens, 5,
+    sp, ep = k1_shape("fm_search 20,000 reads x 2 strands", pats, lens,
+                      ln, 5,
                       int((ln.astype(np.int64) + 20 + 16 * steps).sum()))
     whole = (pats[0::2] != 0).all(1)
     check(bool((ep[0::2] >= sp[0::2])[whole].all()), "a read drawn from the "
@@ -1821,7 +1833,7 @@ def phase_wide_alphabets(dev, workdir):
     arr, ln = batch_search.pack_patterns(pats)
     a, lens = torch.from_numpy(arr).to(dev), torch.from_numpy(ln).to(dev)
     sp, ep = timed_pair(
-        "fm_search", lambda: fmq.search_batch(sblk, a, lens),
+        "fm_search", lambda: fmq.search_batch(sblk, a, lens, ln),
         lambda: fmsearch.backward_search_ref(sblk, a, lens), 5, err, times,
         "fm_search all256 4 MiB")
     cnt = (ep - sp + 1).clamp(min=0)
@@ -1978,7 +1990,7 @@ def short_kernels(dev, gcz, label, err, times) -> None:
         pats += [seq, seq[::-1].translate(_COMPLEMENT)]
     arr, ln = batch_search.pack_patterns(pats)
     a, lens = torch.from_numpy(arr).to(dev), torch.from_numpy(ln).to(dev)
-    timed_pair("fm_search", lambda: fmq.search_batch(sblk, a, lens),
+    timed_pair("fm_search", lambda: fmq.search_batch(sblk, a, lens, ln),
                lambda: fmsearch.backward_search_ref(sblk, a, lens), 5, err,
                times, f"fm_search {len(pats)}x{arr.shape[1]} {tag}")
 
@@ -2023,6 +2035,81 @@ def phase_short_blocks(dev, workdir):
         short_kernels(dev, paths[label], label, err, times)
     print(f"# phase 13 (short blocks): {time.perf_counter() - t_phase:.1f} s")
     return runs, err
+
+
+# phase 14: inputs the CLI refuses or answers on purpose (ROADMAP C7-C9)
+def phase_cli_inputs(dev, workdir):
+    """Phase 14: empty query patterns through the port's CLI on the card
+    (C7: no row for them, the other rows the host tier's, an all-empty
+    file searching nothing), and the refusals: an empty `-c` pattern, a
+    `--sampling` that is no power of 2 (C8) and a negative range extract
+    coordinate (C9) exit 1 and write nothing."""
+    import numpy as np
+    import torch
+    from gecoz_tpu_torch import cli
+    from gecoz_tpu_torch.formats.gcz import GecozReader
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(47)
+    acgt = np.frombuffer(b"ACGT", np.uint8)
+    recs = [("c1|x", rng.choice(acgt, 4000)), ("c2", rng.choice(acgt, 1500)),
+            ("c3|x", rng.choice(acgt, 1200))]
+    fa, gcz, mixed, empty = (os.path.join(workdir, f"inputs.{e}") for e in
+                             ("fa", "gcz", "q.fa", "empty.fa"))
+    write_fasta(fa, recs)
+    check(cli.main(["-i", fa, "-o", gcz, "--device", str(dev)]) == 0,
+          "inputs: compress failed")
+    blocks = [h.headers for h in GecozReader(gcz).headers]
+    check(["c2", "c3|x"] in blocks, f"inputs: blocks {blocks}: no block "
+          "of two records, whose record ends an empty pattern used to hit")
+    q, r = recs[1][1][10:15].tobytes(), recs[0][1][50:60].tobytes()
+    with open(mixed, "wb") as f:
+        f.write(b">e\n\n>q\n" + q + b"\n>f\n\n>r|note\n" + r + b"\n")
+    with open(empty, "wb") as f:
+        f.write(b">e\n\n>f\n\n")
+
+    def on_card(qf):
+        reset_counts()                        # the search starts
+        rows = cli_out(cli.main, ["-i", gcz, "-s", qf, "--device", str(dev)])
+        torch.cuda.synchronize()
+        return rows, counts()                 # ... and ends here
+    rows, launches = on_card(mixed)
+    want = cli_out(cli.main, ["-i", gcz, "-s", mixed, "--backend", "numpy"])
+    check(rows == want, "inputs: GFF3 rows of the mixed query file differ "
+          "from the host tier's")
+    for row in rows.splitlines():
+        start, end = map(int, row.split("\t")[3:5])
+        check(1 <= start <= end, f"inputs: malformed GFF3 row {row!r}")
+    check("\tID=q\n" in rows and "ID=e" not in rows and "ID=f" not in rows,
+          "inputs: rows for the empty records, or none for q")
+    check(launches["fm_search"] > 0, "inputs: fm_search was not launched")
+    rows_e, none = on_card(empty)
+    check(rows_e == "" and not any(none.values()), f"inputs: the all-empty "
+          f"query file gave {rows_e.count(chr(10))} rows and launches {none}")
+
+    def refused(argv, path):
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out), \
+                contextlib.redirect_stderr(io.StringIO()):
+            rc = cli.main(argv + ["--device", str(dev)])
+        check(rc == 1 and out.getvalue() == "" and not os.path.exists(path),
+              f"inputs: {argv}: exit code {rc}, {len(out.getvalue())} bytes "
+              f"out, {path} written: {os.path.exists(path)}")
+    bad = os.path.join(workdir, "inputs.bad.gcz")
+    refused(["-i", gcz, "-c", ""], bad)
+    for rate in ("10", "0"):
+        refused(["-i", fa, "-o", bad, "--sampling", rate], bad)
+        check(not os.path.exists(bad[:-3] + "gcx"), "inputs: --sampling "
+              f"{rate} left a .gcx")
+    seq = os.path.join(workdir, "inputs.seq")
+    refused(["-i", gcz, "-o", seq, "c2", "-5", "10"], seq)
+    print(f"# inputs (ROADMAP C7-C9): GFF3 rows of a query file with empty "
+          f"records equal to the host tier's ({rows.count(chr(10))} rows, "
+          f"none malformed, none for the empty records), an all-empty file "
+          f"no rows and no launch; -c \"\", --sampling 10, --sampling 0 and "
+          f"extract c2 -5 10 exit 1 and write nothing; "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    print(f"# launches during the mixed query file's search: "
+          f"{json.dumps(launches)}")
 
 
 def sharded_run(label, s, mesh, impl, want=None, again=False):
@@ -2175,6 +2262,7 @@ def main() -> int:
         _, wruns, werr, wtimes, wbounds, wrr = phase_wide_alphabets(dev, work)
         phase_tools(dev, work)
         short_runs, serr = phase_short_blocks(dev, work)
+        phase_cli_inputs(dev, work)
     loaded = [m for m in sys.modules if m.split(".")[0] in REFUSED]
     check(not loaded, f"{loaded} were imported")
     print(f"# all phases passed; total time {time.perf_counter() - t_all:.1f}"

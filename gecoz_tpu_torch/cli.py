@@ -138,8 +138,6 @@ def _run(params: dict[str, list[str]], backend: str,
         return 1
     tvals = params.get("-t") or params.get("--threads") or []
     threads = int(tvals[0]) if tvals else 1
-    svals = params.get("--sampling") or []
-    sampling = int(svals[0]) if svals else 32
 
     from gecoz_tpu_torch.formats.gcz import check_format
     from gecoz_tpu_torch.tools import driver
@@ -154,14 +152,29 @@ def _run(params: dict[str, list[str]], backend: str,
             return 1
         opath = Path(out[0])
         if check_format(ipath) and len(out) > 1:
-            start = int(out[2]) if len(out) > 2 else 0
-            end = int(out[3]) if len(out) > 3 else None
+            try:
+                coords = [int(v) for v in out[2:4]]
+                bad = min(coords, default=0) < 0
+            except ValueError:
+                bad = True
+            if bad:
+                return _refuse("range extract: from and to must be "
+                               f"integers >= 0, got {' '.join(out[2:4])}")
+            start = coords[0] if coords else 0
+            end = coords[1] if len(coords) > 1 else None
             driver.extract_range(ipath, out[1], start, end, opath)
             return 0
         if check_format(ipath):
             driver.decompress(ipath, opath, backend=backend, threads=threads,
                               device=device)
         else:
+            svals = params.get("--sampling") or []
+            try:
+                sampling = int(svals[0]) if svals else 32
+                driver.check_sampling(sampling)
+            except ValueError:
+                return _refuse(f"--sampling must be a power of 2, got "
+                               f"{svals[0]}")
             idx = params.get("-idx") or params.get("--index")
             driver.index_fasta(ipath, opath, Path(idx[0]) if idx else None,
                                sampling=sampling, backend=backend,
@@ -178,6 +191,8 @@ def _run(params: dict[str, list[str]], backend: str,
         else:
             header = search[0] if len(search) > 1 else None
             pattern = search[1] if len(search) > 1 else search[0]
+            if not pattern:
+                return _refuse("the search pattern is empty")
             driver.match(ipath, header, pattern, show_positions=True)
     elif "-c" in params or "--count" in params:
         count = params.get("-c") or params.get("--count")
@@ -186,8 +201,17 @@ def _run(params: dict[str, list[str]], backend: str,
             return 1
         header = count[0] if len(count) > 1 else None
         pattern = count[1] if len(count) > 1 else count[0]
+        if not pattern:
+            return _refuse("the search pattern is empty")
         driver.match(ipath, header, pattern, show_positions=False)
     return 0
+
+
+def _refuse(msg: str) -> int:
+    """An argument the port refuses (ROADMAP C7-C9): one line, exit 1,
+    before any file is opened or written."""
+    print(f"gecoz_tpu_torch: {msg}", file=sys.stderr)
+    return 1
 
 
 if __name__ == "__main__":

@@ -144,7 +144,10 @@ class FMIndex:
         return self.hswt.occ_batch(symbol, pos)
 
     def search_range(self, pattern: bytes) -> tuple[int, int]:
-        """Backward search; returns [sp, ep] inclusive (GSSA.search:187-197)."""
+        """Backward search; returns [sp, ep] inclusive (GSSA.search:187-197).
+        The pattern is at least one character long."""
+        if not pattern:
+            raise ValueError("search_range: the pattern is empty")
         c = self.c
         ch = pattern[-1]
         sp = int(c[ch])
@@ -194,7 +197,10 @@ class FMIndex:
         return out
 
     def find(self, pattern: bytes) -> dict[int, np.ndarray]:
-        """Per-sequence match positions (GSSA.find:160-185)."""
+        """Per-sequence match positions (GSSA.find:160-185).  An empty
+        pattern has none, as on the device tier (ROADMAP C7)."""
+        if not pattern:
+            return {}
         sp, ep = self.search_range(pattern)
         if ep < sp:
             return {}
@@ -376,7 +382,13 @@ class FMIndex:
 
     def extract(self, nstr: int, start: int = 0, end: int | None = None) -> bytes:
         """Bytes [start, end) of sequence `nstr` (GSSA.extract:90-126);
-        decodes only the covering sampling-aligned span."""
+        decodes only the covering sampling-aligned span.  `end` past the
+        sequence (or None) is its end; `start` >= `end` gives no bytes; a
+        negative coordinate, which would read the sequences before it and
+        their terminators, is refused (ROADMAP C9)."""
+        if start < 0 or (end is not None and end < 0):
+            raise ValueError(f"extract: coordinates must be >= 0, got "
+                             f"{start}, {end}")
         b, t = self.seq_bounds(nstr)
         if end is None or b + end > t:
             end = t - b

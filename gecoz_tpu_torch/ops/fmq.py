@@ -589,16 +589,17 @@ def with_rank_blocks(block: DeviceFMBlock) -> DeviceFMBlock:
 
 
 def search_batch(block: DeviceFMBlock, patterns: torch.Tensor,
-                 lengths: torch.Tensor):
+                 lengths: torch.Tensor, host_lengths=None):
     """Backward-search many patterns (kernel K1 on the card).
 
     `patterns` is uint8 [B, L] right-aligned (last character at column
-    L-1, leading columns zero-padded); `lengths` is int32 [B].  Returns
-    int32 (sp, ep) inclusive row ranges; ep < sp means no match.  With a
-    k-mer table attached each query's last min(len, k) characters resolve
-    in one table read.  On the card the block needs its rank table
-    (`with_rank_blocks`)."""
-    return fmsearch.backward_search(block, patterns, lengths)
+    L-1, leading columns zero-padded); `lengths` is int32 [B], every length
+    >= 1, checked on `host_lengths` (the caller's host copy) when given
+    (`fmsearch.backward_search`).  Returns int32 (sp, ep) inclusive row
+    ranges; ep < sp means no match.  With a k-mer table attached each
+    query's last min(len, k) characters resolve in one table read.  On the
+    card the block needs its rank table (`with_rank_blocks`)."""
+    return fmsearch.backward_search(block, patterns, lengths, host_lengths)
 
 
 # -- locate ------------------------------------------------------------------

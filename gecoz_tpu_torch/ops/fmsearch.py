@@ -119,10 +119,23 @@ def _seed_k(block, L: int) -> int:
 
 # -- backward search ---------------------------------------------------------
 
+def _check_lengths(lengths) -> None:
+    """The search's contract: every pattern is at least one character
+    long.  A length-0 row would seed on its padding byte, 0, the
+    separator, and match every record end (ROADMAP C7).  torch's min of a
+    host copy (numpy is shared, not copied) keeps pace with the kernel at
+    2^20 patterns, where a numpy scan of them takes longer than it."""
+    lengths = torch.as_tensor(lengths)
+    if lengths.numel() and int(lengths.min()) < 1:
+        raise ValueError("backward_search: every pattern length must be "
+                         ">= 1; drop empty patterns before the search")
+
+
 def backward_search_ref(block, patterns: torch.Tensor,
                         lengths: torch.Tensor):
     """Plain PyTorch `search_batch`: all patterns in lockstep, one column
-    a round, on the device of the tensors."""
+    a round, on the device of the tensors.  Every length >= 1."""
+    _check_lengths(lengths)
     B, L = patterns.shape
     k = _seed_k(block, L)
     if k:
@@ -241,18 +254,26 @@ def _search_launch(block, patterns, lengths, v1: bool = False):
     return sp, ep
 
 
-def backward_search(block, patterns: torch.Tensor, lengths: torch.Tensor):
+def backward_search(block, patterns: torch.Tensor, lengths: torch.Tensor,
+                    host_lengths=None):
     """Backward-search many patterns against one block.
 
     `patterns` is uint8 [B, L] right-aligned (last character at column
-    L-1, leading columns zero-padded), `lengths` int32 [B], L >= 1.  With a
-    k-mer table attached the last min(len, k) characters resolve in one
-    table read.  On the card the block needs its rank table
-    (`fmq.with_rank_blocks`).  Returns int32 (sp, ep) inclusive row ranges;
-    ep < sp means no match."""
+    L-1, leading columns zero-padded), `lengths` int32 [B], every length
+    >= 1 and L >= 1.  The lengths are checked on the host: pass
+    `host_lengths`, the caller's host copy of `lengths` (numpy or a CPU
+    tensor), and a call on the card adds no sync; without it the check
+    reads `lengths` back.  With a k-mer table attached the last min(len,
+    k) characters resolve in one table read.  On the card the block needs
+    its rank table (`fmq.with_rank_blocks`).  Returns int32 (sp, ep)
+    inclusive row ranges; ep < sp means no match."""
     _check(block, patterns, lengths)
     if patterns.shape[1] == 0:
         raise ValueError("backward_search: patterns need L >= 1 columns")
+    if host_lengths is not None and len(host_lengths) != patterns.shape[0]:
+        raise TypeError(f"backward_search: {len(host_lengths)} host lengths "
+                        f"for {patterns.shape[0]} patterns")
+    _check_lengths(lengths if host_lengths is None else host_lengths)
     if patterns.is_cuda:
         out = _search_launch(block, patterns, lengths)
         if patterns.shape[0]:

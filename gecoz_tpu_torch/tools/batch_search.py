@@ -48,22 +48,26 @@ def search_tables(fm, dev: torch.device) -> fmq.DeviceFMBlock:
 def find_batched(fm, patterns: list[bytes],
                  device=None) -> list[dict[int, np.ndarray]]:
     """Per-pattern {sequence: positions} over one block, searched and
-    located on `device` (default: the card)."""
-    if not patterns:
-        return []
+    located on `device` (default: the card).  An empty pattern has no
+    hits (`FMIndex.find`'s answer): it gets {} without reaching the
+    search, and without a non-empty pattern the block's tables are not
+    built (ROADMAP C7)."""
+    out: list[dict[int, np.ndarray]] = [dict() for _ in patterns]
+    live = [i for i, p in enumerate(patterns) if p]
+    if not live:
+        return out
     dev = pick_device(device)
     with metrics.phase("search.tables", fm.length):
         device_block = search_tables(fm, dev)
         sync(dev)
-    arr, lens = pack_patterns(patterns)
+    arr, lens = pack_patterns([patterns[i] for i in live])
     with metrics.phase("search.batch", arr.nbytes):
         sp, ep = fmq.search_batch(device_block, torch.from_numpy(arr).to(dev),
-                                  torch.from_numpy(lens).to(dev))
+                                  torch.from_numpy(lens).to(dev), lens)
         sp = sp.cpu().numpy().astype(np.int64)
         ep = ep.cpu().numpy().astype(np.int64)
 
     counts = np.maximum(ep - sp + 1, 0)
-    out: list[dict[int, np.ndarray]] = [dict() for _ in patterns]
     if int(counts.sum()) == 0:
         return out
 
@@ -77,10 +81,10 @@ def find_batched(fm, patterns: list[bytes],
 
     e_arr = fm.e
     offs = np.concatenate([[0], np.cumsum(counts)])
-    for i, c in enumerate(counts):
+    for k, (i, c) in enumerate(zip(live, counts)):
         if c == 0:
             continue
-        hits = np.sort(values[offs[i]:offs[i + 1]])
+        hits = np.sort(values[offs[k]:offs[k + 1]])
         idx1 = 0
         res = {}
         for j in range(len(e_arr)):

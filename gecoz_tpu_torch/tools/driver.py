@@ -25,6 +25,7 @@ runner and the GFF3 row writer they share with the card's verbs.
 from __future__ import annotations
 
 import logging
+import numbers
 import sys
 import time
 from pathlib import Path
@@ -115,6 +116,17 @@ def _run_tasks(tasks, threads: int) -> None:
             f.result()
 
 
+def check_sampling(rate) -> None:
+    """`--sampling`, the suffix array's sampling rate: an integer power of
+    2 (1, 2, 4, ...).  Raises ValueError otherwise, which `index_fasta`
+    does before it opens or truncates any file (ROADMAP C8)."""
+    if not isinstance(rate, numbers.Integral) or rate < 1 \
+            or rate & (rate - 1):
+        raise ValueError(f"the sampling rate must be a power of 2 (1, 2, 4, "
+                         f"..., {DEFAULT_SAMPLING_RATE} by default), got "
+                         f"{rate!r}")
+
+
 def index_fasta(ipath, opath, xpath=None, sampling=DEFAULT_SAMPLING_RATE,
                 backend: str = "auto", threads: int = 1,
                 resume: bool = False,
@@ -131,7 +143,10 @@ def index_fasta(ipath, opath, xpath=None, sampling=DEFAULT_SAMPLING_RATE,
     release the GIL), written in plan order with in-flight work capped
     like the reference's 1-deep queue (GecozFileWriter.java:174-201).
     With resume=True, complete leading blocks of an existing output pair
-    that match the plan are kept and encoding restarts after them."""
+    that match the plan are kept and encoding restarts after them.  A
+    sampling rate that is not a power of 2 is refused before any file
+    opens."""
+    check_sampling(sampling)
     t0 = time.time()
     tier = resolve_backend(backend)
     dev = pick_device(device) if tier == "device" else None
@@ -359,7 +374,8 @@ def gff_search(ref_path, fasta_path, out=None, backend: str = "auto",
     (SimpleGFFGenerator.search:45-163).  On the device tier all queries x
     strands run as one batched search and one batched locate per block on
     `device` (default: the card); on the host tier ("numpy", "native")
-    `FMIndex.find` runs per query and strand."""
+    `FMIndex.find` runs per query and strand.  An empty query record
+    gives no row on either tier (ROADMAP C7)."""
     out = sys.stdout if out is None else out
     tier = resolve_backend(backend)
     dev = pick_device(device) if tier == "device" else None

@@ -241,6 +241,40 @@ def test_fm_search_lengths_past_width(cuda, gen):
             assert torch.equal(got[0], exact[0]) and torch.equal(got[1], exact[1])
 
 
+def test_fm_search_length_one_beside_full_width(cuda, gen):
+    """The contract's edge, every length >= 1: rows of one character (the
+    seed from c[], or the table's first level) next to rows that fill
+    every column and end at column 0, in one launch, against the plain
+    version.  A length-0 row is refused before any launch, from the host
+    copy of the lengths and, without one, from the lengths read back."""
+    s, blk = _card_block(cuda, gen)
+    starts = gen.integers(0, len(s) - 40, size=600)
+    pats = [bytes(s[a:a + 24]) for a in starts[:300]]
+    pats += [bytes(s[a:a + 1]) for a in starts[300:]]
+    pats += [b"A", b"C", b"G", b"T", b"N", b"Z", b"\0"]
+    pats = [pats[i] for i in gen.permutation(len(pats))]
+    arr, ln = _pack(pats)
+    assert arr.shape[1] == 24 and ln.min() == 1
+    a, n = torch.from_numpy(arr).to(cuda), torch.from_numpy(ln).to(cuda)
+    bad = ln.copy()
+    bad[len(bad) // 2] = 0
+    nbad = torch.from_numpy(bad).to(cuda)
+    blocks = (blk, fmq.with_kmer_table(blk), fmq.with_kmer_table(blk, 3))
+    for block in map(fmq.with_rank_blocks, blocks):
+        before = fmsearch.LAUNCHES["fm_search"]
+        got = fmq.search_batch(block, a, n, ln)
+        torch.cuda.synchronize()
+        assert fmsearch.LAUNCHES["fm_search"] == before + 1
+        want = fmsearch.backward_search_ref(block, a, n)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+        for host in (bad, None):
+            with pytest.raises(ValueError, match="length must be >= 1"):
+                fmq.search_batch(block, a, nbad, host)
+        with pytest.raises(ValueError, match="length must be >= 1"):
+            fmsearch.backward_search_ref(block, a, nbad)
+        assert fmsearch.LAUNCHES["fm_search"] == before + 1
+
+
 @pytest.mark.parametrize("sf,packed", [(5, True), (4, True), (3, True),
                                        (2, True), (1, True), (5, False),
                                        (3, False)])
