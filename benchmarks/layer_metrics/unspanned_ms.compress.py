@@ -1,0 +1,10 @@
+"""Driver: the self time of the root phase `index`, the whole verb less
+its direct child phases on the calling thread: the host time that no
+span names, ms per compress."""
+
+
+def read(ctx):
+    st = ctx.spans.get("index")
+    if st is None or not ctx.ops:
+        return None
+    return st.self_seconds * 1e3 / ctx.ops

@@ -217,17 +217,17 @@ def bound_ms(nbytes: float) -> float:
 
 
 def print_fetched() -> None:
-    """The bytes the host fetched per block in the compress run (the mesh
-    route: mark bits, sampled values, wavelet node bits), beside the
-    int32 suffix array the per-block route fetched on top of the node
-    bits."""
-    from gecoz_tpu_torch.parallel import mesh
-    for f in mesh.FETCHED:
-        got = f["marks"] + f["samples"] + f["wavelet"]
-        print(f"#   fetched for a {f['n']}-byte block: {f['marks']} mark + "
-              f"{f['samples']} sample + {f['wavelet']} wavelet bytes = "
-              f"{got / f['n']:.3f} B/char (a full int32 SA and the node "
-              f"bits: {(4 * f['n'] + f['wavelet']) / f['n']:.3f} B/char)")
+    """The bytes the host fetched in the compress run (the mesh route: mark
+    bits, sampled values, wavelet node bits; the `mesh.fetched_bytes`
+    counter) per character encoded (`mesh.wavelet`'s bytes), beside the 4
+    bytes a character of the int32 suffix array that the per-block route
+    fetched on top of the node bits."""
+    from gecoz_tpu_torch.utils import metrics
+    st = metrics.stats()
+    got = st["mesh.fetched_bytes"].count if "mesh.fetched_bytes" in st else 0
+    n = st["mesh.wavelet"].bytes if "mesh.wavelet" in st else 0
+    print(f"#   fetched: {got} bytes for {n} characters = "
+          f"{got / max(n, 1):.3f} B/char (a full int32 SA alone: 4 B/char)")
 
 
 def rusage():
@@ -674,7 +674,6 @@ def phase_end_to_end(dev, workdir):
     import torch
     from gecoz_tpu_torch import cli
     from gecoz_tpu_torch.ops import lfwalk
-    from gecoz_tpu_torch.parallel import mesh
     from gecoz_tpu_torch.utils import metrics
 
     fa = os.path.join(workdir, "genome.fa")
@@ -687,7 +686,6 @@ def phase_end_to_end(dev, workdir):
     print(f"# FASTA: {os.path.getsize(fa)} bytes, {total} bases")
 
     port_gcz = os.path.join(workdir, "port.gcz")
-    mesh.FETCHED.clear()
     metrics.reset()
     torch.cuda.reset_peak_memory_stats(dev)
     r0 = rusage()
@@ -793,7 +791,6 @@ def phase_two_large_blocks(dev, workdir):
     import numpy as np
     import torch
     from gecoz_tpu_torch import cli
-    from gecoz_tpu_torch.parallel import mesh
     from gecoz_tpu_torch.utils import metrics
 
     rng = np.random.default_rng(17)
@@ -809,7 +806,6 @@ def phase_two_large_blocks(dev, workdir):
     metrics.reset()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats(dev)
-    mesh.FETCHED.clear()
     r0 = rusage()
     t0 = time.perf_counter()
     rc = cli.main(["-i", fa, "-o", gcz, "--device", str(dev)])

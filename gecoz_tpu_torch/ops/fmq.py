@@ -56,6 +56,7 @@ from gecoz_tpu_torch.ops.fmsearch import occ_inclusive
 from gecoz_tpu_torch.ops.fmsearch import popcount32 as _popcount32
 from gecoz_tpu_torch.ops.sa_device import check_strategy
 from gecoz_tpu_torch.ops.scan import cumsum_i32
+from gecoz_tpu_torch.utils import metrics
 
 _I32 = torch.int32
 # planes the 4-bit codes of the k = 16 and k = 8 decode rows can name; a
@@ -361,19 +362,28 @@ def device_block_from_fm(fm, device, planes: bool = True) -> DeviceFMBlock:
     (decoded on the host) and the two .gcx arrays go up, planes, marks and
     c are built there.  Any alphabet, up to all 256 byte values; the
     planes cost about sigma/4 bytes a character, and planes=False (the
-    decode lift) skips them."""
+    decode lift) skips them.  Phases: `lift.bwt` (the host BWT, cached
+    once decoded), `lift.gcx` (the .gcx arrays decoded on the host) and
+    `lift.build` (the uploads and the build's launches)."""
     fm._require_index()
-    counts = fm.hswt.symbol_counts()
-    symbols = tuple(int(x) for x in np.flatnonzero(counts))
-    rows, _ = fm.index.sampled_rows()
+    n = fm.length
+    with metrics.phase("lift.bwt"):
+        bwt = fm.bwt
+    with metrics.phase("lift.gcx", n):
+        rows, _ = fm.index.sampled_rows()
+        rows = np.sort(rows)
+        perm = fm.index.wsa.perm
+        wrap_row = int(fm.wrap_row)
     dev = torch.device(device)
 
     def up(a, dtype):
         return torch.from_numpy(np.ascontiguousarray(a, dtype=dtype)).to(dev)
-    return build_device_block_parts(
-        up(fm.bwt, np.uint8), up(np.sort(rows), np.int32),
-        up(fm.index.wsa.perm, np.int32), int(fm.wrap_row),
-        int(fm.index.sampling_factor), symbols, planes)
+    with metrics.phase("lift.build", n):
+        counts = fm.hswt.symbol_counts()
+        symbols = tuple(int(x) for x in np.flatnonzero(counts))
+        return build_device_block_parts(
+            up(bwt, np.uint8), up(rows, np.int32), up(perm, np.int32),
+            wrap_row, int(fm.index.sampling_factor), symbols, planes)
 
 
 # -- LF mapping and its tables -----------------------------------------------

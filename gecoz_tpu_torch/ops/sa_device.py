@@ -32,6 +32,7 @@ from gecoz_tpu_torch.ops.sa_host import (RUN_THRESHOLD, dense_table,
                                          runs_m_pad, runs_r1_keys,
                                          runs_token_table)
 from gecoz_tpu_torch.ops.scan import cumsum_i32, fill_fwd_i32, fill_rev_i32
+from gecoz_tpu_torch.utils import metrics
 
 STRATEGIES = ("sort", "scatter")
 
@@ -121,6 +122,7 @@ def _sort_rerank_n(keys, strategy: str = "sort", unsigned: bool = False):
     order = perm.to(_I32)
     rank = apply_perm(order, ranks_in_order, strategy=strategy)
     done = bool(ranks_in_order[n - 1] == n - 1)
+    metrics.count("sa.rounds")
     return rank, order, done
 
 
@@ -334,6 +336,7 @@ def _suffix_array_runs(s: torch.Tensor, nr_mode: str = "auto",
         ks, perm = lexsort(keys, unsigned=True)
         rio = _group_ranks(ks)
         done = bool(rio[M - 1] == M - 1)
+        metrics.count("sa.rounds")
         return (rio, perm.to(_I32), carry[perm]), k * mult, done
 
     if r1_keys is None:
@@ -424,7 +427,8 @@ def suffix_array_device(s, impl: str = "auto", with_bwt: bool = False,
 
     impl: 'kmer', 'runs' or 'auto' (pick by the longest equal-symbol run).
     with_bwt=True returns (sa, bwt).  The host array feeds the bound/table
-    precomputation; one upload brings it to the device.
+    precomputation (phase `sa.host_bounds`); one upload brings it to the
+    device.
     """
     from gecoz_tpu_torch.utils.device import device as default_device
     s = np.ascontiguousarray(s, dtype=np.uint8)
@@ -435,23 +439,27 @@ def suffix_array_device(s, impl: str = "auto", with_bwt: bool = False,
                                    device=s_dev.device)) if with_bwt \
             else empty
     mx = None
-    if impl == "auto":
-        mx = max_run_length(s)           # measured once; threaded below
-        impl = "runs" if mx > RUN_THRESHOLD else "kmer"
+    with metrics.phase("sa.host_bounds", s.shape[0]):
+        if impl == "auto":
+            mx = max_run_length(s)       # measured once; threaded below
+            impl = "runs" if mx > RUN_THRESHOLD else "kmer"
+        if impl == "runs":
+            syms = tuple(int(x) for x in np.unique(s))
+            if len(syms) > 7:
+                syms = None      # packed seed only pays below 3 sym bits
+            ebs = runs_ell_bits(s, mx=mx)
+            tab = runs_token_table(s, syms, ell_bits=ebs)
+            m_pad, r1_keys = runs_m_pad(s), runs_r1_keys(tab)
+        elif impl == "kmer":
+            table, bits = dense_table(np.unique(s))
     if impl == "runs":
-        syms = tuple(int(x) for x in np.unique(s))
-        if len(syms) > 7:
-            syms = None          # packed seed only pays below 3 sym bits
-        ebs = runs_ell_bits(s, mx=mx)
-        tab = runs_token_table(s, syms, ell_bits=ebs)
         sa, bwt = _suffix_array_runs(
-            s_dev, syms=syms, m_pad=runs_m_pad(s),
+            s_dev, syms=syms, m_pad=m_pad,
             tok_table=None if tab is None else torch.from_numpy(tab),
-            ell_bits=ebs, r1_keys=runs_r1_keys(tab), strategy=strategy)
+            ell_bits=ebs, r1_keys=r1_keys, strategy=strategy)
         return (sa, bwt) if with_bwt else sa
     if impl != "kmer":
         raise ValueError(f"impl must be auto, runs or kmer, got {impl!r}")
-    table, bits = dense_table(np.unique(s))
     sa = _suffix_array(s_dev, torch.from_numpy(table), bits=bits,
                        strategy=strategy)
     if with_bwt:

@@ -25,7 +25,6 @@ writes.
 from __future__ import annotations
 
 import os
-from collections import deque
 from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
 from pathlib import Path
@@ -51,11 +50,6 @@ from gecoz_tpu_torch.utils import metrics
 from gecoz_tpu_torch.utils.device import device as default_device
 from gecoz_tpu_torch.utils.device import needs_sharded_sa
 from gecoz_tpu_torch.utils.hostmem import warm_for_block
-
-# bytes the host fetched per encoded block, newest last: {"n", "marks",
-# "samples", "wavelet"}
-FETCHED: deque = deque(maxlen=4096)
-
 
 def largest_first_schedule(sizes: list[int], n_shards: int) -> list[int]:
     """Greedy LPT: assign each block (largest first) to the least-loaded
@@ -194,8 +188,10 @@ def encode_blocks(blocks: list[np.ndarray], headers: list[list[str]],
         raise ValueError(f"sampling rate must be a power of 2, got "
                          f"{sampling_rate}")
 
+    caller = metrics.current()
+
     def serialize(n, hdrs, ssa, shape, hswt):
-        with metrics.phase("mesh.serialize", n):
+        with metrics.phase("mesh.serialize", n, parent=caller):
             return _serialize(hdrs, n, shape, hswt, ssa)
 
     with metrics.phase("mesh.sa", sum(len(b) for b in blocks)):
@@ -213,16 +209,18 @@ def encode_blocks(blocks: list[np.ndarray], headers: list[list[str]],
                 hswt = HSWT.from_packed(shape, build_hswt_device(bwt, shape))
             del bwt
             maxlen = int(shape.bit_lengths.max())
-            FETCHED.append({
-                "n": n, "marks": mark_bytes.nbytes,
-                "samples": samples.nbytes,
-                "wavelet": sum(4 * ((b + 31) // 32) for b in
-                               _level_bit_counts(shape, maxlen))})
+            # the bytes the host fetched for the block: marks, samples and
+            # the wavelet node bits
+            metrics.count("mesh.fetched_bytes", mark_bytes.nbytes
+                          + samples.nbytes
+                          + sum(4 * ((b + 31) // 32) for b in
+                                _level_bit_counts(shape, maxlen)))
             ssa = SampledSAIndex(RankBitVector(mark_bytes, n),
                                  IndexWaveletTree(samples.astype(np.int64)),
                                  sf)
             futures.append(pool.submit(serialize, n, hdrs, ssa, shape, hswt))
-        return [f.result() for f in futures]
+        with metrics.phase("mesh.serialize_wait"):
+            return [f.result() for f in futures]
 
 
 @dataclass

@@ -52,46 +52,49 @@ def find_batched(fm, patterns: list[bytes],
     hits (`FMIndex.find`'s answer): it gets {} without reaching the
     search, and without a non-empty pattern the block's tables are not
     built (ROADMAP C7)."""
-    out: list[dict[int, np.ndarray]] = [dict() for _ in patterns]
-    live = [i for i, p in enumerate(patterns) if p]
+    with metrics.phase("search.pack"):
+        live = [i for i, p in enumerate(patterns) if p]
+        arr, lens = pack_patterns([patterns[i] for i in live])
     if not live:
-        return out
+        return [dict() for _ in patterns]
     dev = pick_device(device)
     with metrics.phase("search.tables", fm.length):
         device_block = search_tables(fm, dev)
         sync(dev)
-    arr, lens = pack_patterns([patterns[i] for i in live])
     with metrics.phase("search.batch", arr.nbytes):
         sp, ep = fmq.search_batch(device_block, torch.from_numpy(arr).to(dev),
                                   torch.from_numpy(lens).to(dev), lens)
         sp = sp.cpu().numpy().astype(np.int64)
         ep = ep.cpu().numpy().astype(np.int64)
 
-    counts = np.maximum(ep - sp + 1, 0)
-    if int(counts.sum()) == 0:
-        return out
-
     # expand all hit rows and locate them in one batch
-    rows = np.concatenate([np.arange(s, e + 1)
-                           for s, e, c in zip(sp, ep, counts) if c > 0])
+    with metrics.phase("search.expand"):
+        counts = np.maximum(ep - sp + 1, 0)
+        if int(counts.sum()) == 0:
+            return [dict() for _ in patterns]
+        rows = np.concatenate([np.arange(s, e + 1)
+                               for s, e, c in zip(sp, ep, counts) if c > 0])
+    metrics.count("search.located_rows", len(rows))
     with metrics.phase("search.locate", rows.nbytes):
         values = fmq.locate_batch(
             device_block, torch.from_numpy(rows.astype(np.int32)).to(dev))
         values = values.cpu().numpy().astype(np.int64)
 
-    e_arr = fm.e
-    offs = np.concatenate([[0], np.cumsum(counts)])
-    for k, (i, c) in enumerate(zip(live, counts)):
-        if c == 0:
-            continue
-        hits = np.sort(values[offs[k]:offs[k + 1]])
-        idx1 = 0
-        res = {}
-        for j in range(len(e_arr)):
-            idx2 = int(np.searchsorted(hits, e_arr[j], side="left"))
-            if idx2 > idx1:
-                base = int(e_arr[j - 1]) + 1 if j > 0 else 0
-                res[j] = hits[idx1:idx2] - base
-                idx1 = idx2
-        out[i] = res
+    with metrics.phase("search.split"):
+        out: list[dict[int, np.ndarray]] = [dict() for _ in patterns]
+        e_arr = fm.e
+        offs = np.concatenate([[0], np.cumsum(counts)])
+        for k, (i, c) in enumerate(zip(live, counts)):
+            if c == 0:
+                continue
+            hits = np.sort(values[offs[k]:offs[k + 1]])
+            idx1 = 0
+            res = {}
+            for j in range(len(e_arr)):
+                idx2 = int(np.searchsorted(hits, e_arr[j], side="left"))
+                if idx2 > idx1:
+                    base = int(e_arr[j - 1]) + 1 if j > 0 else 0
+                    res[j] = hits[idx1:idx2] - base
+                    idx1 = idx2
+            out[i] = res
     return out

@@ -127,6 +127,7 @@ def check_sampling(rate) -> None:
                          f"{rate!r}")
 
 
+@metrics.phase("index")
 def index_fasta(ipath, opath, xpath=None, sampling=DEFAULT_SAMPLING_RATE,
                 backend: str = "auto", threads: int = 1,
                 resume: bool = False,
@@ -151,12 +152,13 @@ def index_fasta(ipath, opath, xpath=None, sampling=DEFAULT_SAMPLING_RATE,
     tier = resolve_backend(backend)
     dev = pick_device(device) if tier == "device" else None
     ipath = Path(ipath)
-    sequences = list(iter_fasta(ipath, lazy=True))
-    if not sequences:
-        raise SystemExit(f"no data found in file: {ipath}")
-    blocks = plan_blocks(sequences)
-    warm_for_block(max(sum(s.length + 1 for s in b.sequences)
-                       for b in blocks))
+    with metrics.phase("index.plan"):
+        sequences = list(iter_fasta(ipath, lazy=True))
+        if not sequences:
+            raise SystemExit(f"no data found in file: {ipath}")
+        blocks = plan_blocks(sequences)
+        warm_for_block(max(sum(s.length + 1 for s in b.sequences)
+                           for b in blocks))
     log.info("indexing %d sequences in %d blocks (%s)", len(sequences),
              len(blocks), _tier(backend, dev, threads))
     skip = _resume_prefix(opath, xpath, blocks, sampling) if resume else 0
@@ -230,8 +232,9 @@ def _index_blocks_mesh(blocks, read_block, w, sampling, device,
             return
         with metrics.phase("index.encode_mesh", sum(len(d) for d in window)):
             encoded = encode_blocks(window, hdrs, sampling, device, mesh)
-        for gcz, gcx in encoded:
-            w.write_encoded(gcz, gcx)
+        with metrics.phase("index.write"):
+            for gcz, gcx in encoded:
+                w.write_encoded(gcz, gcx)
         window.clear()
         hdrs.clear()
 
@@ -247,6 +250,7 @@ def _index_blocks_mesh(blocks, read_block, w, sampling, device,
     flush()
 
 
+@metrics.phase("decode")
 def decompress(ipath, opath, backend: str = "auto", threads: int = 1,
                device: torch.device | str | None = None) -> None:
     """.gcz -> FASTA (GecoRead.fasta:83-175).
@@ -368,6 +372,7 @@ def _device_decode(fm, dev: torch.device) -> np.ndarray:
         return text.cpu().numpy()
 
 
+@metrics.phase("search")
 def gff_search(ref_path, fasta_path, out=None, backend: str = "auto",
                device: torch.device | str | None = None) -> None:
     """Query-FASTA search emitting GFF3 rows, forward + reverse complement
@@ -382,24 +387,28 @@ def gff_search(ref_path, fasta_path, out=None, backend: str = "auto",
     log.info("GFF3 search (%s)", _tier(backend, dev))
     reader = GecozReader(ref_path)
 
-    queries = []
-    for q in iter_fasta(fasta_path):
-        seq = bytes(q.data).replace(b"U", b"T")
-        rev = seq[::-1].translate(_COMPLEMENT)
-        queries.append((q.header, seq, rev))
+    with metrics.phase("search.read_queries"):
+        queries = []
+        for q in iter_fasta(fasta_path):
+            seq = bytes(q.data).replace(b"U", b"T")
+            rev = seq[::-1].translate(_COMPLEMENT)
+            queries.append((q.header, seq, rev))
+        if dev is not None:
+            patterns = [s for _, f, r in queries for s in (f, r)]
 
     # one block's query state at a time (GecoMatch.java:109-135)
     results = []              # per block: (seq headers, {strand_idx: hits})
     if dev is not None:
-        patterns = [s for _, f, r in queries for s in (f, r)]
         for bheader in reader.headers:
-            fm = reader.read(bheader)
+            with metrics.phase("search.read_block"):
+                fm = reader.read(bheader)
             results.append((bheader.headers, find_batched(fm, patterns,
                                                           dev)))
             del fm
     else:
         for bheader in reader.headers:
-            fm = reader.read(bheader)
+            with metrics.phase("search.read_block"):
+                fm = reader.read(bheader)
             per = {}
             for qi, (_, fwd, rev) in enumerate(queries):
                 per[2 * qi] = fm.find(fwd)
@@ -408,13 +417,14 @@ def gff_search(ref_path, fasta_path, out=None, backend: str = "auto",
             del fm
 
     # emit in the reference's row order: query -> strand -> block -> seq
-    for qi, (header, fwd, _) in enumerate(queries):
-        for si, reverse in ((2 * qi, False), (2 * qi + 1, True)):
-            for seq_headers, per in results:
-                for i, hits in sorted(per[si].items()):
-                    for p in hits:
-                        _gff_row(out, seq_headers[i], int(p), len(fwd),
-                                 reverse, header)
+    with metrics.phase("search.rows"):
+        for qi, (header, fwd, _) in enumerate(queries):
+            for si, reverse in ((2 * qi, False), (2 * qi + 1, True)):
+                for seq_headers, per in results:
+                    for i, hits in sorted(per[si].items()):
+                        for p in hits:
+                            _gff_row(out, seq_headers[i], int(p), len(fwd),
+                                     reverse, header)
 
 
 def _gff_row(out, target, pos, plen, reverse, qheader):

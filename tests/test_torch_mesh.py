@@ -26,6 +26,8 @@ from gecoz_tpu.parallel import mesh as ref_mesh
 from gecoz_tpu.tools import driver as ref_driver
 from gecoz_tpu_torch import cli
 from gecoz_tpu_torch.formats.gcz import encode_block_host
+from gecoz_tpu_torch.index.shape import HSWTShape
+from gecoz_tpu_torch.ops.wavelet import _level_bit_counts
 from gecoz_tpu_torch.ops.sa_device import suffix_array_device
 from gecoz_tpu_torch.parallel import local_mesh
 from gecoz_tpu_torch.parallel import mesh
@@ -100,14 +102,19 @@ def test_sa_state_equals_state_fn(rng, sf, ends_in_sep):
 
 def test_encode_blocks_equals_reference_device_route(rng):
     blocks, headers = _blocks(rng)
+    metrics.reset()
     got = mesh.encode_blocks(blocks, headers, device="cpu")
     assert got == ref_mesh.encode_blocks(blocks, headers, backend="device")
     assert got == [encode_block_host(b, h) for b, h in zip(blocks, headers)]
-    for fetched, b in zip(list(mesh.FETCHED)[-5:], blocks):
+    # the host fetched each block's marks, sampled values and node bits
+    want = 0
+    for b in blocks:
         n = len(b)
-        assert fetched["n"] == n
-        assert fetched["marks"] == (n + 7) // 8
-        assert fetched["samples"] == 4 * ((n + 31) // 32)
+        shape = HSWTShape.from_counts(np.bincount(b, minlength=256))
+        want += (n + 7) // 8 + 4 * ((n + 31) // 32) + sum(
+            4 * ((bits + 31) // 32) for bits in _level_bit_counts(
+                shape, int(shape.bit_lengths.max())))
+    assert metrics.stats()["mesh.fetched_bytes"].count == want
 
 
 def test_encode_blocks_sharded_route_forced(rng, monkeypatch):

@@ -1,0 +1,236 @@
+"""The phase registry (`utils/metrics.py`) and the spans the port's verbs
+open, on the CPU.
+
+* Nesting: a phase's self time is its time less its direct children's on
+  the same thread, and it names its enclosing phase; a phase on a worker
+  thread names its parent and takes nothing from the parent's self time.
+* Counters live in the same registry, and survive `reset`/`stats`/`report`
+  as phases do; threads update it at once without losing an update.
+* `profiler_trace` records a pool thread's span where torch can.
+* One `index_fasta`, one `decompress` and one `gff_search` hold every span
+  and counter the benchmark's per-layer metrics read, and each root's time
+  is its children's plus its self time.  A search of 400 reads opens as
+  many phases and counters as one of 40: none is per read.
+"""
+
+import io
+import json
+import sys
+import threading
+import time
+from concurrent.futures import ThreadPoolExecutor
+
+import numpy as np
+import pytest
+
+from gecoz_tpu_torch.tools import driver
+from gecoz_tpu_torch.utils import metrics
+
+from conftest import random_dna
+from test_gcz_files import write_fasta
+
+
+def test_nested_phases_keep_self_time_and_parent():
+    metrics.reset()
+    with metrics.phase("t.outer"):
+        time.sleep(0.02)
+        with metrics.phase("t.inner"):
+            time.sleep(0.03)
+        with metrics.phase("t.inner"):
+            pass
+    st = metrics.stats()
+    outer, inner = st["t.outer"], st["t.inner"]
+    assert outer.parent is None and inner.parent == "t.outer"
+    assert inner.calls == 2 and inner.self_seconds == inner.seconds
+    assert outer.self_seconds == pytest.approx(outer.seconds - inner.seconds)
+    assert 0.02 <= outer.self_seconds < outer.seconds
+    assert metrics.current() is None
+
+
+def test_a_worker_phase_leaves_the_callers_self_time_alone():
+    metrics.reset()
+    with ThreadPoolExecutor(max_workers=1) as pool:
+        with metrics.phase("t.main"):
+            caller = metrics.current()
+
+            def work():
+                with metrics.phase("t.worker", parent=caller):
+                    with metrics.phase("t.worker_inner"):
+                        time.sleep(0.03)
+            pool.submit(work).result()
+    st = metrics.stats()
+    main, worker, inner = st["t.main"], st["t.worker"], st["t.worker_inner"]
+    assert caller == "t.main" and worker.parent == "t.main"
+    assert inner.parent == "t.worker"
+    assert main.self_seconds == main.seconds >= worker.seconds
+    assert worker.self_seconds == pytest.approx(worker.seconds
+                                                - inner.seconds)
+
+
+def test_counters_under_reset_stats_and_report():
+    metrics.reset()
+    metrics.count("t.rows", 5)
+    metrics.count("t.rows", 7)
+    metrics.count("t.rounds")
+    with metrics.phase("t.locate", 8):
+        metrics.count("t.locate", 3)
+    st = metrics.stats()
+    assert (st["t.rows"].count, st["t.rows"].calls) == (12, 0)
+    assert st["t.rows"].seconds == 0 and st["t.rounds"].count == 1
+    assert (st["t.locate"].count, st["t.locate"].calls) == (3, 1)
+    lines = metrics.report().splitlines()
+    assert "t.rows: 12 counted" in lines and "t.rounds: 1 counted" in lines
+    assert any(line.startswith("t.locate: ") and line.endswith("3 counted")
+               for line in lines)
+    metrics.reset()
+    assert metrics.stats() == {} and metrics.report() == ""
+
+
+def test_threads_update_one_entry():
+    metrics.reset()
+    switch = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+
+    def work():
+        for _ in range(500):
+            metrics.count("t.shared", 2)
+            with metrics.phase("t.shared", 1, parent="t.root"):
+                pass
+    try:
+        threads = [threading.Thread(target=work) for _ in range(16)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=60)
+    finally:
+        sys.setswitchinterval(switch)
+    assert not any(t.is_alive() for t in threads)
+    st = metrics.stats()["t.shared"]
+    assert (st.count, st.calls, st.bytes) == (16000, 8000, 8000)
+    assert st.parent == "t.root"
+
+
+@pytest.mark.skipif(metrics.all_threads_config() is None,
+                    reason="this torch has no profile_all_threads")
+def test_profiler_trace_records_a_pool_threads_span(tmp_path, monkeypatch):
+    monkeypatch.setenv("GECOZ_TRACE_DIR", str(tmp_path))
+    with ThreadPoolExecutor(max_workers=1) as pool:
+        pool.submit(lambda: None).result()    # the thread predates the trace
+        with metrics.profiler_trace() as path:
+            with metrics.phase("t.caller"):
+                caller = metrics.current()
+
+                def work():
+                    with metrics.phase("t.pool", parent=caller):
+                        time.sleep(0.01)
+                pool.submit(work).result()
+    with open(path) as f:
+        names = {e.get("name") for e in json.load(f)["traceEvents"]}
+    assert {"t.caller", "t.pool"} <= names
+
+
+# -- the verbs' spans ---------------------------------------------------------
+
+def _genome(rng):
+    """One record with a run of N long enough for the run-aware sort."""
+    seq = np.concatenate([random_dna(rng, 6000), np.full(500, ord("N"),
+                                                        np.uint8),
+                          random_dna(rng, 5000)])
+    return [("chr1", seq), ("chr2", random_dna(rng, 1500))]
+
+
+def _reads(rng, recs, count):
+    out = []
+    for i in range(count):
+        _, seq = recs[i % len(recs)]
+        at = int(rng.integers(0, 1000))
+        out.append((f"read{i}", seq[at:at + 40]))
+    return out
+
+
+@pytest.fixture
+def compressed(tmp_path, rng):
+    fa, gcz = tmp_path / "in.fa", tmp_path / "in.gcz"
+    recs = _genome(rng)
+    write_fasta(fa, recs)
+    metrics.reset()
+    driver.index_fasta(fa, gcz, device="cpu")
+    return recs, fa, gcz, metrics.stats()
+
+
+def _root_accounted(st, root):
+    """The root's time equals its direct children's plus its self time."""
+    children = sum(s.seconds for name, s in st.items()
+                   if s.parent == root and s.calls)
+    assert st[root].parent is None and st[root].calls == 1
+    assert children > 0
+    assert children + st[root].self_seconds == pytest.approx(
+        st[root].seconds, rel=1e-9, abs=1e-12)
+
+
+def test_a_compress_holds_its_spans_and_counters(compressed):
+    *_, st = compressed
+    assert {"index", "index.plan", "index.read_fasta", "index.encode_mesh",
+            "index.write", "mesh.sa", "sa.host_bounds", "mesh.wavelet",
+            "mesh.serialize", "mesh.serialize_wait"} <= set(st)
+    assert st["sa.host_bounds"].parent == "mesh.sa"
+    assert st["mesh.serialize_wait"].parent == "index.encode_mesh"
+    assert st["mesh.serialize"].parent == "index.encode_mesh"
+    assert st["sa.rounds"].count >= 1 and st["mesh.fetched_bytes"].count > 0
+    _root_accounted(st, "index")
+    # the worker's serialization is not taken from the encode's self time
+    encode = st["index.encode_mesh"]
+    inner = sum(st[n].seconds for n in ("mesh.sa", "mesh.wavelet",
+                                        "mesh.serialize_wait"))
+    assert encode.self_seconds == pytest.approx(encode.seconds - inner)
+
+
+def test_a_decompress_holds_its_spans(compressed, tmp_path):
+    _, _, gcz, _ = compressed
+    metrics.reset()
+    driver.decompress(gcz, tmp_path / "back.fa", device="cpu")
+    st = metrics.stats()
+    assert {"decode", "decode.read_block", "decode.extract",
+            "decode.host_bwt", "decode.lift", "lift.bwt", "lift.gcx",
+            "lift.build", "decode.reflow"} <= set(st)
+    for name in ("lift.bwt", "lift.gcx", "lift.build"):
+        assert st[name].parent == "decode.lift"
+    _root_accounted(st, "decode")
+
+
+def test_a_search_holds_its_spans_and_counter(compressed, tmp_path, rng):
+    recs, _, gcz, _ = compressed
+    qa = tmp_path / "q.fa"
+    write_fasta(qa, _reads(rng, recs, 40))
+    metrics.reset()
+    sink = io.StringIO()
+    driver.gff_search(gcz, qa, out=sink, device="cpu")
+    st = metrics.stats()
+    assert {"search", "search.read_queries", "search.read_block",
+            "search.pack", "search.tables", "lift.bwt", "lift.gcx",
+            "lift.build", "search.batch", "search.expand", "search.locate",
+            "search.split", "search.rows"} <= set(st)
+    assert st["lift.gcx"].parent == "search.tables"
+    assert st["search.located_rows"].count == len(sink.getvalue()
+                                                   .splitlines()) >= 40
+    _root_accounted(st, "search")
+
+
+def test_no_span_or_counter_per_read(compressed, tmp_path, rng,
+                                     monkeypatch):
+    recs, _, gcz, _ = compressed
+    opened = {"phase": 0, "count": 0}
+    for name in opened:
+        def wrapper(*a, _orig=getattr(metrics, name), _name=name, **k):
+            opened[_name] += 1
+            return _orig(*a, **k)
+        monkeypatch.setattr(metrics, name, wrapper)
+    seen = []
+    for count in (40, 400):
+        qa = tmp_path / f"q{count}.fa"
+        write_fasta(qa, _reads(rng, recs, count))
+        opened.update(phase=0, count=0)
+        driver.gff_search(gcz, qa, out=io.StringIO(),
+                          device="cpu")
+        seen.append(dict(opened))
+    assert seen[0] == seen[1] and seen[0]["phase"] > 0

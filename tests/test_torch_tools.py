@@ -62,8 +62,8 @@ def test_profiler_trace_is_off_without_the_variable(tmp_path, monkeypatch):
 
 def test_trace_of_a_cli_compress(tmp_path, rng, monkeypatch):
     """A whole compress through the CLI, traced: the mesh route's phases
-    opened on the calling thread are in the trace (`mesh.serialize` runs
-    on worker threads, which the profiler does not follow)."""
+    opened on the calling thread are in the trace, and `mesh.serialize`,
+    which runs on worker threads, where torch can record those."""
     fa = tmp_path / "in.fa"
     write_fasta(fa, [("chr1", random_dna(rng, 3000, b"ACGTN")),
                      ("chr2", random_dna(rng, 900))])
@@ -71,8 +71,12 @@ def test_trace_of_a_cli_compress(tmp_path, rng, monkeypatch):
     with metrics.profiler_trace() as path:
         assert cli.main(["-i", str(fa), "-o", str(tmp_path / "x.gcz"),
                          "--device", "cpu"]) == 0
-    assert {"index.read_fasta", "index.encode_mesh", "mesh.sa",
-            "mesh.wavelet"} <= _trace_names(path)
+    names = _trace_names(path)
+    assert {"index", "index.plan", "index.read_fasta", "index.encode_mesh",
+            "mesh.sa", "sa.host_bounds", "mesh.wavelet",
+            "mesh.serialize_wait", "index.write"} <= names
+    if metrics.all_threads_config() is not None:
+        assert "mesh.serialize" in names
 
 
 def test_entry_matches_the_reference_entry():
