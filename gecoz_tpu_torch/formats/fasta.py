@@ -14,10 +14,15 @@ line after the marker.  Output matches FastaFileWriter.java:30-224:
 50-character lines, each newline-terminated — including its quirk of an
 extra blank line when the sequence length is an exact multiple of 50 (the
 reserved mmap region is ``len + len/50 + 1`` bytes, FastaFileWriter.java:142).
+
+`read_queries`, the GFF3 search's reader of its query file, is the port's
+own: it gives `iter_fasta`'s records from one read of the file, and falls
+back to `iter_fasta` on a file of neither regular shape.
 """
 
 from __future__ import annotations
 
+import re
 from dataclasses import dataclass
 from pathlib import Path
 from typing import Iterator
@@ -161,6 +166,72 @@ def iter_fasta(path: str | Path, lazy: bool = False) -> Iterator[FastaSequence]:
             line = f.readline()
         if header is not None:
             yield record()
+
+
+_TRAILING_CR = re.compile(rb"\r+(?=\n)|\r+\Z")
+
+
+def read_queries(path: str | Path) -> tuple[list[str], list[bytes], bool]:
+    """A query file's `(headers, sequences, bulk)`: what `iter_fasta`
+    gives, in one read of the file.
+
+    The lines are split once and classified by their first bytes.  Two
+    regular shapes are parsed in bulk (`bulk` is True): FASTA, where no
+    line starts with '@' or '+' (a record is a '>' line and the stripped
+    lines up to the next; lines before the first are ignored), and FASTQ
+    in 4-line records ('@' header, one non-empty sequence line that starts
+    with none of '>@+', a '+' line, one quality line).  Any other file,
+    and one whose headers are not UTF-8, is read by `iter_fasta`.
+    """
+    with _open_maybe_gzip(Path(path)) as f:
+        data = f.read()
+    if b"\r" in data:                 # each line's rstrip(b"\r\n")
+        data = _TRAILING_CR.sub(b"", data)
+    lines = data.split(b"\n")
+    if lines[-1] == b"":              # no line after the last newline
+        lines.pop()
+    n = len(lines)
+    lens = np.fromiter(map(len, lines), np.int64, n)
+    starts = np.cumsum(lens + 1) - (lens + 1)
+    mark = np.zeros(n, np.uint8)      # each line's first byte, 0 if empty
+    full = lens > 0
+    mark[full] = np.frombuffer(data, np.uint8)[starts[full]]
+    del data
+    gt, at, plus = (mark == ord(c) for c in ">@+")
+    headers = None
+    if not at.any() and not plus.any():
+        heads = np.flatnonzero(gt)
+        ends = np.append(heads[1:], n)
+        # one line a record: slices share the lines, no join a record
+        # (10^6 150-bp reads: 234 ms against the join's 630 on an H100 host)
+        if len(heads) and (ends - heads == 2).all():
+            headers = _headers(lines[heads[0]::2], "\n>")
+            seqs = lines[heads[0] + 1::2]
+        else:
+            headers = _headers([lines[i] for i in heads.tolist()], "\n>")
+            seqs = [b"".join(lines[a + 1:b])
+                    for a, b in zip(heads.tolist(), ends.tolist())]
+    elif (n % 4 == 0 and at[0::4].all() and plus[2::4].all()
+          and full[1::4].all()
+          and not (gt[1::4] | at[1::4] | plus[1::4]).any()):
+        headers, seqs = _headers(lines[0::4], "\n@"), lines[1::4]
+    if headers is None:
+        records = [(q.header, bytes(q.data)) for q in iter_fasta(path)]
+        return [h for h, _ in records], [s for _, s in records], False
+    return headers, seqs, True
+
+
+def _headers(lines: list[bytes], sep: str) -> list[str] | None:
+    """Header lines less their marker, decoded in one call; None if they
+    are not UTF-8.  `sep` is a newline and the marker: it cuts the joined
+    lines exactly where they were joined."""
+    if not lines:
+        return []
+    try:
+        text = b"\n".join(lines).decode()
+    except UnicodeDecodeError:
+        return None
+    return text[1:].split(sep)
 
 
 def read_sequence(path: str | Path, seq: FastaSequence) -> np.ndarray:

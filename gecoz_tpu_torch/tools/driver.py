@@ -33,8 +33,9 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from gecoz_tpu_torch.formats.fasta import (iter_fasta, read_sequence,
-                                           record_size, write_fasta_segment)
+from gecoz_tpu_torch.formats.fasta import (iter_fasta, read_queries,
+                                           read_sequence, record_size,
+                                           write_fasta_segment)
 from gecoz_tpu_torch.formats.gcz import (DEFAULT_SAMPLING_RATE, GecozReader,
                                          GecozWriter, encode_block_host)
 from gecoz_tpu_torch.ops import fmq, lfwalk
@@ -388,13 +389,14 @@ def gff_search(ref_path, fasta_path, out=None, backend: str = "auto",
     reader = GecozReader(ref_path)
 
     with metrics.phase("search.read_queries"):
-        queries = []
-        for q in iter_fasta(fasta_path):
-            seq = bytes(q.data).replace(b"U", b"T")
-            rev = seq[::-1].translate(_COMPLEMENT)
-            queries.append((q.header, seq, rev))
+        headers, seqs, bulk = read_queries(fasta_path)
+        metrics.count("search.query_records", len(headers))
+        metrics.count("search.query_records_bulk",
+                      len(headers) if bulk else 0)
+        fwd, rev = _strands(seqs)
         if dev is not None:
-            patterns = [s for _, f, r in queries for s in (f, r)]
+            patterns = [b""] * (2 * len(fwd))
+            patterns[0::2], patterns[1::2] = fwd, rev
 
     # one block's query state at a time (GecoMatch.java:109-135)
     results = []              # per block: (seq headers, {strand_idx: hits})
@@ -410,21 +412,35 @@ def gff_search(ref_path, fasta_path, out=None, backend: str = "auto",
             with metrics.phase("search.read_block"):
                 fm = reader.read(bheader)
             per = {}
-            for qi, (_, fwd, rev) in enumerate(queries):
-                per[2 * qi] = fm.find(fwd)
-                per[2 * qi + 1] = fm.find(rev)
+            for qi, (f, r) in enumerate(zip(fwd, rev)):
+                per[2 * qi] = fm.find(f)
+                per[2 * qi + 1] = fm.find(r)
             results.append((bheader.headers, per))
             del fm
 
     # emit in the reference's row order: query -> strand -> block -> seq
     with metrics.phase("search.rows"):
-        for qi, (header, fwd, _) in enumerate(queries):
+        for qi, (header, f) in enumerate(zip(headers, fwd)):
             for si, reverse in ((2 * qi, False), (2 * qi + 1, True)):
                 for seq_headers, per in results:
                     for i, hits in sorted(per[si].items()):
                         for p in hits:
-                            _gff_row(out, seq_headers[i], int(p), len(fwd),
+                            _gff_row(out, seq_headers[i], int(p), len(f),
                                      reverse, header)
+
+
+def _strands(seqs: list[bytes]) -> tuple[list[bytes], list[bytes]]:
+    """Each sequence with U read as T, and its reverse complement: done
+    once over the sequences joined by newlines, which none holds."""
+    if not seqs:
+        return [], []
+    joined = b"\n".join(seqs)
+    if b"U" in joined:
+        joined = joined.replace(b"U", b"T")
+        seqs = joined.split(b"\n")
+    rev = joined[::-1].translate(_COMPLEMENT).split(b"\n")
+    rev.reverse()
+    return seqs, rev
 
 
 def _gff_row(out, target, pos, plen, reverse, qheader):

@@ -234,3 +234,28 @@ def test_no_span_or_counter_per_read(compressed, tmp_path, rng,
                           device="cpu")
         seen.append(dict(opened))
     assert seen[0] == seen[1] and seen[0]["phase"] > 0
+
+
+@pytest.mark.parametrize("shape", ["fasta", "fastq_multi_line"])
+def test_a_search_counts_its_query_records(compressed, tmp_path, rng, shape):
+    """Both counters are set once a search; every record of a FASTA query
+    file is parsed in bulk, none of a multi-line FASTQ one."""
+    recs, _, gcz, _ = compressed
+    reads = _reads(rng, recs, 40)
+    qa = tmp_path / "q.fa"
+    if shape == "fasta":
+        write_fasta(qa, reads)
+    else:
+        qa.write_bytes(b"".join(
+            b"@%s\n%s\n%s\n+\n%s\n%s\n" % (h.encode(), bytes(s[:20]),
+                                         bytes(s[20:]), b"I" * 20, b"I" * 20)
+            for h, s in reads))
+    metrics.reset()
+    sink = io.StringIO()
+    driver.gff_search(gcz, qa, out=sink, device="cpu")
+    st = metrics.stats()
+    assert st["search.query_records"].count == 40
+    bulk = st["search.query_records_bulk"].count
+    assert bulk == (40 if shape == "fasta" else 0)
+    assert st["search.located_rows"].count == len(sink.getvalue()
+                                                   .splitlines()) >= 40
