@@ -1,15 +1,17 @@
-"""Run the control (gzbench/control.py) in a cell's place, at the cell's
+"""Run a control (gzbench/control.py) in a cell's place, at the cell's
 own size, on the card, and print what the judge reads for each seed:
 
     python3 benchmarks/control.py --workload hg38.compress --seconds 5 --seeds 11 12 13
 
-One line of JSON per seed: the seed, `correct` and the numbers compared.
-The benchmark's own runs never run it.
+The cell's own control, or with `--control NAME` the one in
+`controls/NAME.py`.  One line of JSON per seed: the seed, the control,
+`correct` and the numbers compared.  The benchmark's own runs never run it.
 """
 
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 import sys
 import time
@@ -24,6 +26,8 @@ def main(argv=None) -> int:
     ap.add_argument("--workload", required=True)
     ap.add_argument("--seconds", type=float, default=5.0)
     ap.add_argument("--seeds", type=int, nargs="+", required=True)
+    ap.add_argument("--control", default=None,
+                    help="a file of controls/ (default: the cell's own)")
     args = ap.parse_args(argv)
 
     import torch
@@ -36,8 +40,10 @@ def main(argv=None) -> int:
     bench = load_json(ROOT / "BENCHMARK.json")
     for seed in args.seeds:
         r = run_cell(bench, args.workload, seed, args.seconds, False,
-                     "cuda:0", time.perf_counter(), replace=replaced)
+                     "cuda:0", time.perf_counter(),
+                     replace=functools.partial(replaced, name=args.control))
         print(json.dumps({"workload": args.workload, "seed": seed,
+                          "control": args.control or "default",
                           "correct": r["correct"],
                           "checks": {k: v["value"]
                                      for k, v in r["checks"].items()}}),

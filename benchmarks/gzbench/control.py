@@ -1,16 +1,24 @@
 """The control: one guarantee of the configuration broken, the step a
 faster version would be tempted to take.  The judge has to find it wrong.
 
-* compress: the program's own compress with the suffix array sampled at
-  twice the configured rate (a smaller `.gcx`, the configured `.gcz`);
-* decompress: the reference's FASTA with every N written as A (a 2-bit
-  decode: not lossless);
-* search: the reference's rows of the reads as written alone, the reverse
-  complements left unsearched (half the patterns: the search the
-  configuration's "both strands" rules out).
+A control is `controls/<name>.py` with `replaced(op)`, a context manager
+that puts something else in the program's place for as long as it is
+entered.  A mix names its control under `control`; without one, each
+operation has its own (`DEFAULT`):
 
-`replaced(op)` patches the program's driver for as long as it is entered;
-`benchmarks/control.py` runs it on the card, the tests on the CPU.
+* compress, `compress_sampling_doubled`: the program's own compress with
+  the suffix array sampled at twice the configured rate (a smaller `.gcx`,
+  the configured `.gcz`);
+* decompress, `decompress_two_bit`: the reference's FASTA with every N
+  written as A (a 2-bit decode: not lossless);
+* search, `search_plus_strand`: the reference's rows of the queries as
+  written alone, the reverse complements left unsearched (half the
+  patterns: the search the configuration's "both strands" rules out).
+
+`search_one_row` keeps one row of each query and strand, the locate cut
+short, which fails where queries occur more than once (peptides, whose
+reverse complements rarely occur in a protein, pass the strand control).
+`benchmarks/control.py` runs a control on the card, the tests on the CPU.
 """
 
 from __future__ import annotations
@@ -19,11 +27,34 @@ import contextlib
 import io
 from pathlib import Path
 
-import numpy as np
-
-from gzref import fasta as ref_fasta
-from gzref import gcz as ref_gcz
+from gzbench.named import BENCH, load
+from gzbench.operations import gcz_order
 from gzref import search as ref_search
+
+CONTROLS = BENCH / "controls"
+DEFAULT = {"compress": "compress_sampling_doubled",
+           "decompress": "decompress_two_bit",
+           "search": "search_plus_strand"}
+
+
+def replaced(op, name: str | None = None):
+    """The control `name` (else the mix's, else the operation's default)
+    over operation `op`, as a context manager."""
+    name = name or op.traffic.get("control", DEFAULT[op.traffic["operation"]])
+    return load(CONTROLS, name, "control").replaced(op)
+
+
+@contextlib.contextmanager
+def in_place_of(verb: str, make):
+    """The program's `driver.<verb>` replaced by `make(the original)` while
+    entered."""
+    from gecoz_tpu_torch.tools import driver
+    orig = getattr(driver, verb)
+    setattr(driver, verb, make(orig))
+    try:
+        yield
+    finally:
+        setattr(driver, verb, orig)
 
 
 def _read_fasta(path: Path) -> list[tuple[str, bytes]]:
@@ -40,34 +71,14 @@ def _read_fasta(path: Path) -> list[tuple[str, bytes]]:
     return out
 
 
-@contextlib.contextmanager
-def replaced(op):
-    from gecoz_tpu_torch.tools import driver
-    records = op.by_header
-    saved = (driver.index_fasta, driver.decompress, driver.gff_search)
-
-    def compress(ipath, opath, xpath=None, sampling=32, **kw):
-        saved[0](ipath, opath, xpath, sampling=2 * sampling, **kw)
-
-    def decompress(ipath, opath, **_kw):
-        order = [h for b in ref_gcz.block_headers(Path(ipath).read_bytes())
-                 for h in b]
-        two_bit = {h: np.where(s == ord("N"), ord("A"), s).astype(np.uint8)
-                   for h, s in records.items()}
-        Path(opath).write_bytes(ref_fasta.fasta_bytes(order, two_bit))
-
+def reference_search(op, keep):
+    """In place of `driver.gff_search`: the reference's rows of each query
+    of the file, of which `keep(rows)` says which are written."""
     def gff_search(ref_path, fasta_path, out=None, **_kw):
-        order = [h for b in ref_gcz.block_headers(Path(ref_path).read_bytes())
-                 for h in b]
-        rows = ref_search.expected_rows([_read_fasta(fasta_path)], order,
-                                        records, op.device)[0]
+        queries = _read_fasta(fasta_path)
+        each = ref_search.expected_rows([[q] for q in queries],
+                                        gcz_order(ref_path), op.by_header,
+                                        op.device)
         sink = out if out is not None else io.StringIO()
-        sink.write("".join(row + "\n" for row in rows
-                           if row.split("\t")[6] == "+"))
-
-    driver.index_fasta, driver.decompress, driver.gff_search = (
-        compress, decompress, gff_search)
-    try:
-        yield
-    finally:
-        driver.index_fasta, driver.decompress, driver.gff_search = saved
+        sink.write("".join(row + "\n" for rows in each for row in keep(rows)))
+    return in_place_of("gff_search", lambda _orig: gff_search)

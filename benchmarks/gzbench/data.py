@@ -1,10 +1,19 @@
 """Inputs made from the seed: records of a configuration, query files of a
 traffic mix, and FASTA files of both.
 
-Every seed gets the same sizes: the same record lengths, the same N-run,
-repeat and microsatellite sizes, the same read length and the same
-histogram of changed bases per read.  The seed moves what is random inside
-them: bases, positions, strands.
+A configuration's records come from its record kind, `kinds/<kind>.py`,
+and a mix's queries from its query kind, `queries/<kind>.py` (`reads`
+where the mix names none); both are found by name, and draw what they need
+from the helpers here.  Every seed gets the same sizes (for `dna` and
+`reads`: the same record lengths, the same N-run, repeat and
+microsatellite sizes, the same read length and the same histogram of
+changed bases per read).  The seed moves what is random inside them:
+bases, positions, strands.
+
+`tests/test_torch_query_reader.py` loads this file by its path, with no
+`gzbench` package to import, and writes the benchmark's reads with
+`simulated_reads`: so the generator stays here, and the loader is
+imported inside the functions that use it.
 """
 
 from __future__ import annotations
@@ -14,6 +23,9 @@ import zlib
 from pathlib import Path
 
 import numpy as np
+
+KINDS = Path(__file__).resolve().parent.parent / "kinds"
+QUERIES = Path(__file__).resolve().parent.parent / "queries"
 
 
 def rng_for(seed: int, stream: str) -> np.random.Generator:
@@ -33,59 +45,19 @@ def draw(rng: np.random.Generator, table: np.ndarray, n: int) -> np.ndarray:
     return table[rng.integers(0, len(table), n)]
 
 
-# -- DNA ------------------------------------------------------------------------
-
-def dna_chromosome(rng: np.random.Generator, n: int, g: dict) -> np.ndarray:
-    """One chromosome of n bases: copies of one Alu-like unit with point
-    mutations and microsatellites over bases of the given composition,
-    then N runs over them: telomeric runs at both ends, the unsequenced
-    p-arm after the first, and one centromeric run near the middle.  The
-    method of `tools/validate_scale.py::synth_chromosome`, with each size
-    that method draws fixed by `g`, and the N runs laid last so that
-    their share is exact."""
-    bases = np.frombuffer(b"ACGT", np.uint8)
-    out = draw(rng, composition_table(g["base_composition"]), n)
-    unit_len = g["alu_length"]
-    copies = int(n * g["alu_share"]) // unit_len
-    if copies:
-        unit = rng.choice(bases, unit_len)
-        block = np.tile(unit, (copies, 1))
-        nmut = rng.poisson(g["alu_mutations_mean"], copies)
-        rows = np.repeat(np.arange(copies), nmut)
-        block[rows, rng.integers(0, unit_len, len(rows))] = \
-            rng.choice(bases, len(rows))
-        starts = rng.integers(0, n - unit_len, copies)
-        out[starts[:, None] + np.arange(unit_len)] = block
-
-    count = max(1, n // g["bases_per_microsatellite"])
-    m_lo, m_hi = g["microsatellite_motif"]
-    r_lo, r_hi = g["microsatellite_repeats"]
-    for i in range(count):
-        motif = rng.choice(bases, m_lo + i % (m_hi - m_lo + 1))
-        reps = r_lo + (r_hi - r_lo) * i // max(1, count - 1)
-        run = np.tile(motif, reps)
-        at = int(rng.integers(0, max(1, n - len(run))))
-        run = run[:max(0, min(len(run), n - at))]
-        out[at:at + len(run)] = run
-
-    tel = int(n * g["telomere_share"])
-    p_arm = int(n * g["p_arm_share"])
-    cen = int(n * g["centromere_share"])
-    out[:tel + p_arm] = ord("N")
-    out[n - tel:] = ord("N")
-    mid = n // 2 + int(rng.integers(-(n // 10), n // 10 + 1))
-    out[mid:mid + cen] = ord("N")
-    return out
-
-
 def records_of(config: dict, seed: int) -> list[tuple[str, np.ndarray]]:
-    """The records of a configuration file for `seed`."""
-    kind = config["kind"]
-    if kind == "dna":
-        return [(r["header"], dna_chromosome(rng_for(seed, f"dna/{r['header']}"),
-                                             r["length"], config["genome"]))
-                for r in config["records"]]
-    raise ValueError(f"unknown configuration kind {kind!r}")
+    """The records of a configuration file for `seed`, by its kind's file."""
+    from gzbench.named import load
+    return load(KINDS, config["kind"], "record kind").records(config, seed)
+
+
+def queries_of(q: dict, rng: np.random.Generator,
+               records: list[tuple[str, np.ndarray]]) -> list[tuple[str, bytes]]:
+    """One query file of a mix's `queries` parameters `q`, drawn with `rng`
+    from `records` by its kind's file."""
+    from gzbench.named import load
+    return load(QUERIES, q.get("kind", "reads"), "query kind").queries(
+        rng, records, q)
 
 
 # -- queries --------------------------------------------------------------------

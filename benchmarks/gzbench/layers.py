@@ -12,13 +12,12 @@ metrics come from the traced window.
 
 from __future__ import annotations
 
-import importlib.util
 from dataclasses import dataclass, field
-from pathlib import Path
 
+from gzbench.named import BENCH, load
 from gzbench.trace import Trace, busy_seconds, device_seconds
 
-LAYER_METRICS = Path(__file__).resolve().parent.parent / "layer_metrics"
+LAYER_METRICS = BENCH / "layer_metrics"
 
 # Published peaks, by the name torch.cuda.get_device_name() gives: HBM
 # bytes/s from NVIDIA's H100 SXM data sheet (at its 700 W power limit).
@@ -64,11 +63,6 @@ def roofline_pct(ctx: Context, nbytes: int, kernel_pattern: str) -> float | None
 
 def reader(name: str):
     """The `read` function of metric `name`, or None without a reader."""
-    path = LAYER_METRICS / f"{name}.py"
-    if not path.is_file():
+    if not (LAYER_METRICS / f"{name}.py").is_file():
         return None
-    spec = importlib.util.spec_from_file_location(
-        "layer_metric_" + name.replace(".", "_").replace("-", "_"), path)
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod.read
+    return load(LAYER_METRICS, name, "per-layer metric").read

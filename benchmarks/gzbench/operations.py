@@ -36,6 +36,12 @@ KEPT = 3              # operations among the first KEPT_FROM whose files stay
 KEPT_FROM = 8
 
 
+def gcz_order(path: Path) -> list[str]:
+    """The record headers of a `.gcz`, in its blocks' order."""
+    return [h for b in ref_gcz.block_headers(Path(path).read_bytes())
+            for h in b]
+
+
 class Operation:
     """One kind of operation over one configuration's records."""
 
@@ -136,8 +142,7 @@ class Decompress(Operation):
 
     def judge(self, done, rng):
         """Each judged FASTA against the records in the .gcz's order."""
-        order = [h for b in ref_gcz.block_headers(self.gcz.read_bytes())
-                 for h in b]
+        order = gcz_order(self.gcz)
         want = np.frombuffer(ref_fasta.fasta_bytes(order, self.by_header),
                              np.uint8)
         out = dict(outputs_missing=0, fasta_bytes_wrong=0)
@@ -162,8 +167,8 @@ class Search(Operation):
         q = self.traffic["queries"]
         self.queries = {}
         for k in ["warm"] + list(range(self.traffic["files"])):
-            self.queries[k] = data.simulated_reads(
-                data.rng_for(self.seed, f"queries/{k}"), self.records, q)
+            self.queries[k] = data.queries_of(
+                q, data.rng_for(self.seed, f"queries/{k}"), self.records)
             data.write_queries(self.qpath(k), self.queries[k])
         self.rows: dict = {}
 
@@ -183,8 +188,7 @@ class Search(Operation):
 
     def judge(self, done, rng):
         """Every run's rows against the reference's rows of its file."""
-        order = [h for b in ref_gcz.block_headers(self.gcz.read_bytes())
-                 for h in b]
+        order = gcz_order(self.gcz)
         files = sorted({self.file_of(i) for i in done})
         want = dict(zip(files, ref_search.expected_rows(
             [self.queries[k] for k in files], order, self.by_header,

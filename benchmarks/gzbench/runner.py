@@ -29,6 +29,7 @@ from gzbench.window import run_window
 
 ROOT = Path(__file__).resolve().parent.parent.parent    # the checkout
 BENCH = ROOT / "benchmarks"
+TRAFFIC = BENCH / "traffic"           # a mix is traffic/<name>.json
 
 
 def load_json(path: Path) -> dict:
@@ -69,7 +70,7 @@ def run_cell(bench: dict, cell_name: str, seed: int, seconds: float,
     cell = cell_of(bench, cell_name)
     config_entry = next(c for c in bench["configs"] if c["name"] == cell["config"])
     config = _merge(load_json(ROOT / config_entry["file"]), config_over)
-    traffic = _merge(load_json(BENCH / "traffic" / f"{cell['traffic']}.json"),
+    traffic = _merge(load_json(TRAFFIC / f"{cell['traffic']}.json"),
                      traffic_over)
     device = torch.device(device)
     workdir = Path(tempfile.mkdtemp(prefix="gzbench-"))

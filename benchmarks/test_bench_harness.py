@@ -58,7 +58,7 @@ def test_dna_records_follow_the_seed():
 def _reads(seed, recs, count=2000):
     q = dict(load_json(HERE / "traffic" / "search_reads.json")["queries"],
              count=count)
-    return q, data.simulated_reads(data.rng_for(seed, "q"), recs, q)
+    return q, data.queries_of(q, data.rng_for(seed, "q"), recs)
 
 
 def test_reads_follow_the_seed():
@@ -229,6 +229,9 @@ def test_run_py_loads_no_jax_nor_the_jax_package():
         "import gecoz_tpu_torch.ops.fmsearch, gecoz_tpu_torch.ops.lfwalk\n"
         "import gecoz_tpu_torch.parallel.mesh\n"
         "for p in (L.LAYER_METRICS).glob('*.py'): L.reader(p.stem)\n"
+        "import gzbench.data as D, gzbench.control as C, gzbench.named as N\n"
+        "for d in (D.KINDS, D.QUERIES, C.CONTROLS):\n"
+        "    for p in d.glob('*.py'): N.load(d, p.stem, 'file')\n"
         "print(run['loaded_refused']())\n")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=300)
@@ -247,13 +250,27 @@ def _imports(path: Path) -> set[str]:
     return out
 
 
+FOUND_BY_NAME = ("kinds", "queries", "controls")
+
+
 def test_the_reference_imports_nothing_of_the_program():
+    """gzref imports nothing of the program nor of the harness; the record
+    kinds, query kinds and controls import nothing of the program (a
+    control reaches the program's driver only through
+    `gzbench.control.in_place_of`)."""
     for path in (HERE / "gzref").glob("*.py"):
         assert not _imports(path) & {"gecoz_tpu_torch", "gecoz_tpu", "jax",
                                      "gzbench"}, path
+    for d in FOUND_BY_NAME:
+        files = list((HERE / d).glob("*.py"))
+        assert files, d
+        for path in files:
+            assert not _imports(path) & {"gecoz_tpu_torch", "gecoz_tpu",
+                                         "jax"}, path
 
 
 def test_no_benchmark_file_imports_jax_or_the_jax_package():
+    assert all(any((HERE / d).glob("*.py")) for d in FOUND_BY_NAME)
     for path in HERE.rglob("*.py"):
         assert not _imports(path) & {"jax", "jaxlib", "flax", "gecoz_tpu"}, path
 
