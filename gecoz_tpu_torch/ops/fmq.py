@@ -209,16 +209,16 @@ def block_from_numpy(fields_np: dict, sf: int) -> DeviceFMBlock:
 # -- query-state build -------------------------------------------------------
 
 def _pack_bits(bits: torch.Tensor) -> torch.Tensor:
-    """0/1 (any int/bool dtype) [n] -> uint32 words [ceil(n/32)] held in
-    int64, LSB-first."""
-    n = bits.shape[0]
+    """0/1 (any int/bool dtype) [..., n] -> uint32 words [..., ceil(n/32)]
+    held in int64, LSB-first."""
+    n = bits.shape[-1]
     W = (n + 31) // 32
     b = bits.to(torch.int64)
     if W * 32 != n:
-        b = torch.cat([b, b.new_zeros(W * 32 - n)])
+        b = torch.cat([b, b.new_zeros(*b.shape[:-1], W * 32 - n)], -1)
     weights = torch.ones(32, dtype=torch.int64, device=b.device) \
         << torch.arange(32, dtype=torch.int64, device=b.device)
-    return (b.view(W, 32) * weights).sum(1)
+    return (b.view(*b.shape[:-1], W, 32) * weights).sum(-1)
 
 
 def _plane(bits: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -241,22 +241,37 @@ def _sym_plane(symbols: tuple[int, ...], dev) -> torch.Tensor:
     return torch.from_numpy(sym_plane).to(dev)
 
 
+# characters times planes built at once: a short block builds all its
+# planes in one pass (a few launches, not a few dozen a plane), a long one
+# a plane at a time, so the build's int64 bit temporaries stay near 128 MB
+PLANE_CHUNK_CHARS = 1 << 24
+
+
 def _symbol_planes(bwt: torch.Tensor, symbols: tuple[int, ...]):
     """(plane_words, plane_pres, c, sym_plane) of the BWT over the static
     alphabet `symbols` (plane order); symbol counts fall out of the plane
-    popcounts.  Each plane is written into the outputs as it is built, so
-    the build holds sigma/4 bytes a character and one plane's
-    temporaries."""
+    popcounts.  The planes are built PLANE_CHUNK_CHARS // n at a time and
+    written into the outputs, so the build holds sigma/4 bytes a character
+    and one chunk's temporaries."""
     dev = bwt.device
-    W = (bwt.shape[0] + 31) // 32
+    n = bwt.shape[0]
+    W = (n + 31) // 32
     words = torch.empty((len(symbols), W), dtype=_I32, device=dev)
     pres = torch.empty((len(symbols), W), dtype=_I32, device=dev)
     counts = torch.zeros(256, dtype=_I32, device=dev)
-    for row, s in enumerate(symbols):
-        w, p = _plane(bwt == s)
-        words[row] = _u32_as_i32(w)
-        pres[row] = p
-        counts[s] = p[-1] + _popcount32(w[-1])
+    sym = torch.tensor(symbols, dtype=torch.uint8, device=dev)
+    per = max(1, PLANE_CHUNK_CHARS // max(n, 1))
+    for lo in range(0, len(symbols), per):
+        s = sym[lo:lo + per]
+        w = _pack_bits(bwt[None, :] == s[:, None])
+        pc = _popcount32(w)
+        # the planes' exclusive prefixes: one scan over the chunk's planes
+        # end to end, less each plane's start (the counts sum to <= n)
+        inc = cumsum_i32(pc.reshape(-1)).view(pc.shape)
+        base = inc[:, :1] - pc[:, :1]
+        words[lo:lo + per] = _u32_as_i32(w)
+        pres[lo:lo + per] = inc - pc - base
+        counts[s.long()] = inc[:, -1] - base[:, 0]
     c = torch.cat([counts.new_zeros(1), cumsum_i32(counts)])
     return (words.view(-1), pres.view(-1), c, _sym_plane(symbols, dev))
 

@@ -39,7 +39,8 @@ from gecoz_tpu_torch.formats.fasta import (iter_fasta, read_queries,
 from gecoz_tpu_torch.formats.gcz import (DEFAULT_SAMPLING_RATE, GecozReader,
                                          GecozWriter, encode_block_host)
 from gecoz_tpu_torch.ops import fmq, lfwalk
-from gecoz_tpu_torch.tools.batch_search import find_batched
+from gecoz_tpu_torch.tools.batch_search import (BlockHits, PatternBatch,
+                                                find_batched)
 from gecoz_tpu_torch.tools.blocks import plan_blocks
 from gecoz_tpu_torch.utils import metrics
 from gecoz_tpu_torch.utils.device import device as pick_device
@@ -157,7 +158,8 @@ def index_fasta(ipath, opath, xpath=None, sampling=DEFAULT_SAMPLING_RATE,
         sequences = list(iter_fasta(ipath, lazy=True))
         if not sequences:
             raise SystemExit(f"no data found in file: {ipath}")
-        blocks = plan_blocks(sequences)
+        with metrics.phase("index.plan_blocks"):
+            blocks = plan_blocks(sequences)
         warm_for_block(max(sum(s.length + 1 for s in b.sequences)
                            for b in blocks))
     log.info("indexing %d sequences in %d blocks (%s)", len(sequences),
@@ -378,10 +380,11 @@ def gff_search(ref_path, fasta_path, out=None, backend: str = "auto",
                device: torch.device | str | None = None) -> None:
     """Query-FASTA search emitting GFF3 rows, forward + reverse complement
     (SimpleGFFGenerator.search:45-163).  On the device tier all queries x
-    strands run as one batched search and one batched locate per block on
-    `device` (default: the card); on the host tier ("numpy", "native")
-    `FMIndex.find` runs per query and strand.  An empty query record
-    gives no row on either tier (ROADMAP C7)."""
+    strands are packed and uploaded once, and run as one batched search
+    and one batched locate per block on `device` (default: the card),
+    which returns only the patterns that hit; on the host tier ("numpy",
+    "native") `FMIndex.find` runs per query and strand.  An empty query
+    record gives no row on either tier (ROADMAP C7)."""
     out = sys.stdout if out is None else out
     tier = resolve_backend(backend)
     dev = pick_device(device) if tier == "device" else None
@@ -394,39 +397,53 @@ def gff_search(ref_path, fasta_path, out=None, backend: str = "auto",
         metrics.count("search.query_records_bulk",
                       len(headers) if bulk else 0)
         fwd, rev = _strands(seqs)
-        if dev is not None:
-            patterns = [b""] * (2 * len(fwd))
-            patterns[0::2], patterns[1::2] = fwd, rev
+        patterns = [b""] * (2 * len(fwd))
+        patterns[0::2], patterns[1::2] = fwd, rev
+    if dev is not None:
+        patterns = PatternBatch(patterns, dev)
 
     # one block's query state at a time (GecoMatch.java:109-135)
-    results = []              # per block: (seq headers, {strand_idx: hits})
-    if dev is not None:
-        for bheader in reader.headers:
+    results = []              # per block: (seq headers, BlockHits)
+    for bheader in reader.headers:
+        with metrics.phase("search.block"):
             with metrics.phase("search.read_block"):
                 fm = reader.read(bheader)
-            results.append((bheader.headers, find_batched(fm, patterns,
-                                                          dev)))
+            if dev is not None:
+                per = find_batched(fm, patterns, dev)
+            else:
+                per = [fm.find(p) for p in patterns]
             del fm
-    else:
-        for bheader in reader.headers:
-            with metrics.phase("search.read_block"):
-                fm = reader.read(bheader)
-            per = {}
-            for qi, (f, r) in enumerate(zip(fwd, rev)):
-                per[2 * qi] = fm.find(f)
-                per[2 * qi + 1] = fm.find(r)
-            results.append((bheader.headers, per))
-            del fm
+        hits = per if isinstance(per, BlockHits) else BlockHits.of(
+            per, len(patterns))
+        metrics.count("search.blocks")
+        metrics.count("search.blocks_hit", int(len(hits.pattern) > 0))
+        results.append((bheader.headers, hits))
 
     # emit in the reference's row order: query -> strand -> block -> seq
+    # -> position (each block's hits are in pattern, record, position order)
     with metrics.phase("search.rows"):
-        for qi, (header, f) in enumerate(zip(headers, fwd)):
-            for si, reverse in ((2 * qi, False), (2 * qi + 1, True)):
-                for seq_headers, per in results:
-                    for i, hits in sorted(per[si].items()):
-                        for p in hits:
-                            _gff_row(out, seq_headers[i], int(p), len(f),
-                                     reverse, header)
+        _write_rows(out, headers, [len(f) for f in fwd], results)
+
+
+def _write_rows(out, headers, lengths, results, chunk: int = 1 << 16):
+    """The GFF3 rows of every block's hits, `chunk` rows a write."""
+    if not results:
+        return
+    pattern = np.concatenate([h.pattern for _, h in results])
+    block = np.repeat(np.arange(len(results)),
+                      [len(h.pattern) for _, h in results])
+    record = np.concatenate([h.record for _, h in results])
+    position = np.concatenate([h.position for _, h in results])
+    order = np.argsort(pattern, kind="stable")
+    targets = [seq_headers for seq_headers, _ in results]
+    for at in range(0, len(order), chunk):
+        part = order[at:at + chunk]
+        out.write("".join(
+            _gff_line(targets[b][r], x, lengths[p >> 1], p & 1,
+                      headers[p >> 1])
+            for p, b, r, x in zip(pattern[part].tolist(), block[part].tolist(),
+                                  record[part].tolist(),
+                                  position[part].tolist())))
 
 
 def _strands(seqs: list[bytes]) -> tuple[list[bytes], list[bytes]]:
@@ -444,13 +461,17 @@ def _strands(seqs: list[bytes]) -> tuple[list[bytes], list[bytes]]:
 
 
 def _gff_row(out, target, pos, plen, reverse, qheader):
+    out.write(_gff_line(target, pos, plen, reverse, qheader))
+
+
+def _gff_line(target, pos, plen, reverse, qheader) -> str:
     strand = "-" if reverse else "+"
     parts = qheader.split("|")
     attrs = f"ID={parts[0]}" if parts else ""
     for extra in parts[1:]:
         attrs += f";Note={extra}"
-    print(f"{target}\tgecotools\tdna\t{pos + 1}\t{pos + plen}\t1.000\t"
-          f"{strand}\t.\t{attrs}", file=out)
+    return (f"{target}\tgecotools\tdna\t{pos + 1}\t{pos + plen}\t1.000\t"
+            f"{strand}\t.\t{attrs}\n")
 
 
 def extract_range(ipath, header: str, start: int, end: int | None,

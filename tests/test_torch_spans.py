@@ -10,7 +10,11 @@ open, on the CPU.
 * One `index_fasta`, one `decompress` and one `gff_search` hold every span
   and counter the benchmark's per-layer metrics read, and each root's time
   is its children's plus its self time.  A search of 400 reads opens as
-  many phases and counters as one of 40: none is per read.
+  many phases and counters as one of 40: none is per read or pattern.  A
+  search opens `search.block` once a block (counted by `search.blocks`,
+  those with a hit by `search.blocks_hit`), `search.ends` once a block
+  with a hit, and packs its patterns once; a compress plans its blocks in
+  `index.plan_blocks`.
 """
 
 import io
@@ -23,6 +27,7 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import pytest
 
+from gecoz_tpu_torch.formats.gcz import GecozReader
 from gecoz_tpu_torch.tools import driver
 from gecoz_tpu_torch.utils import metrics
 
@@ -209,11 +214,40 @@ def test_a_search_holds_its_spans_and_counter(compressed, tmp_path, rng):
     assert {"search", "search.read_queries", "search.read_block",
             "search.pack", "search.tables", "lift.bwt", "lift.gcx",
             "lift.build", "search.batch", "search.expand", "search.locate",
-            "search.split", "search.rows"} <= set(st)
+            "search.split", "search.rows", "search.block", "search.ends",
+            "search.blocks", "search.blocks_hit"} <= set(st)
     assert st["lift.gcx"].parent == "search.tables"
     assert st["search.located_rows"].count == len(sink.getvalue()
                                                    .splitlines()) >= 40
     _root_accounted(st, "search")
+
+
+def test_a_compress_plans_its_blocks_in_a_span(compressed):
+    *_, st = compressed
+    assert st["index.plan_blocks"].parent == "index.plan"
+    assert st["index.plan_blocks"].calls == 1
+
+
+def test_a_search_spans_each_block(compressed, tmp_path, rng):
+    """`search.block` once a block, holding the block's read, tables and
+    record ends; `search.blocks` counts the blocks, `search.blocks_hit`
+    those with a hit; the patterns are packed once a search."""
+    recs, _, gcz, _ = compressed
+    qa = tmp_path / "q.fa"
+    write_fasta(qa, _reads(rng, recs, 40))
+    metrics.reset()
+    driver.gff_search(gcz, qa, out=io.StringIO(), device="cpu")
+    st = metrics.stats()
+    nblocks = len(GecozReader(gcz).headers)
+    assert nblocks == 2
+    assert st["search.block"].calls == st["search.blocks"].count == nblocks
+    assert st["search.block"].parent == "search"
+    for name in ("search.read_block", "search.tables", "search.ends",
+                 "search.split"):
+        assert st[name].parent == "search.block"
+    assert 1 <= st["search.blocks_hit"].count <= nblocks
+    assert st["search.ends"].calls == st["search.blocks_hit"].count
+    assert st["search.pack"].calls == 1
 
 
 def test_no_span_or_counter_per_read(compressed, tmp_path, rng,
