@@ -6,8 +6,8 @@ NVIDIA card.
 
 Phases (any mismatch or exception exits non-zero):
 
-1. environment and build: the card's name and power limit, the three CUDA
-   kernels (scan, fm_search, lf_walk) built from gecoz_tpu_torch/csrc, one
+1. environment and build: the card's name and power limit, the four CUDA
+   kernels (scan, fm_search, lf_walk, gcx) built from gecoz_tpu_torch/csrc, one
    nvcc each, and the host library (g++, csrc/host), all started together
    (time, -Xptxas -v); each kernel library's load time;
 2. every scan entry point against its plain PyTorch version, bit-exact, at
@@ -117,7 +117,15 @@ Phases (any mismatch or exception exits non-zero):
     malformed, none for the empty records, K1 launched) and one of empty
     records only (no rows, no launch); `-c ""`, `--sampling 10`,
     `--sampling 0` and a range extract from -5 exit 1 and write nothing.
-    The total time is printed last.
+    The total time is printed last;
+15. (run after phase 8) the .gcx decode kernels (`csrc/gcx.cu`: unpack,
+    decode) at the two shapes the benchmark lifts, hg38's chr21 block (m
+    = 1,459,687 at rate 32) and a Swiss-Prot block (m = 742), on a .gcx
+    written by the host serializers: against their plain versions,
+    bit-exact, then timed beside their bytes bounds; `gcx.lift` on the
+    host clock (the stored bytes up, unpack, scan, decode, the one sync)
+    beside the host decode it replaced (`sampled_rows`, the sort,
+    `wsa.perm`, the wrap row).
 
 The port stands alone: an import hook refuses JAX and gecoz_tpu, and the
 oracles are the port's host copies (tests/test_torch_host_copies.py holds
@@ -164,7 +172,7 @@ SHARDED_KERNELS = ("cummax_i32", "cummin_rev_i32")   # phase 10's path
 KERNELS = ("cumsum_i32", "cummax_i32", "cummin_rev_i32", "fill_fwd_i32",
            "fill_rev_i32")
 REPLACES = "gecoz_tpu/ops/scan_pallas.py:114"     # _scan_pallas
-LIBS = ("scan", "fmsearch", "lfwalk")
+LIBS = ("scan", "fmsearch", "lfwalk", "gcx")
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM data sheet: the bytes bound
 # the query kernels' entry points: (name, source, TPU kernel replaced)
 QUERY_KERNELS = (
@@ -177,7 +185,10 @@ QUERY_KERNELS = (
     # the decode walks' byte rows (k = 4), the path of blocks past 16
     # symbols (phase 12)
     ("lf_walk.decode.lfk4", "gecoz_tpu_torch/csrc/lfwalk.cu",
-     "tools/probe_gather2d.py:18"))
+     "tools/probe_gather2d.py:18"),
+    # the .gcx decode of the lift (phase 15); they replace no TPU kernel
+    ("gcx.unpack", "gecoz_tpu_torch/csrc/gcx.cu", None),
+    ("gcx.decode", "gecoz_tpu_torch/csrc/gcx.cu", None))
 
 
 def check(ok: bool, what: str) -> None:
@@ -186,18 +197,19 @@ def check(ok: bool, what: str) -> None:
 
 
 def reset_counts() -> None:
-    from gecoz_tpu_torch.ops import fmsearch, lfwalk, scan
-    for mod in (scan, fmsearch, lfwalk):
+    from gecoz_tpu_torch.ops import fmsearch, gcx, lfwalk, scan
+    for mod in (scan, fmsearch, lfwalk, gcx):
         mod.reset_launches()
 
 
 def counts() -> dict[str, int]:
     """Launches of every kernel entry point since the last reset."""
-    from gecoz_tpu_torch.ops import fmsearch, lfwalk, scan
+    from gecoz_tpu_torch.ops import fmsearch, gcx, lfwalk, scan
     out = dict(scan.LAUNCHES)
     out["fm_search"] = fmsearch.LAUNCHES["fm_search"]
     out.update({f"lf_walk.{k}": v for k, v in lfwalk.LAUNCHES.items()})
     out["lf_walk.decode.lfk4"] = lfwalk.DECODE_LAUNCHES["lfk4"]
+    out.update({f"gcx.{k}": v for k, v in gcx.LAUNCHES.items()})
     return out
 
 
@@ -304,13 +316,14 @@ def wall(fn):
 def phase_build(build):
     import concurrent.futures as cf
     from gecoz_tpu_torch import native
-    from gecoz_tpu_torch.ops import fmsearch, lfwalk, scan
+    from gecoz_tpu_torch.ops import fmsearch, gcx, lfwalk, scan
     t0 = time.perf_counter()
     # one nvcc per source and g++ for the host library, all started
     # together; _lib() also declares the C signatures (and lfwalk's loads
     # its kernels)
     with cf.ThreadPoolExecutor(max_workers=len(LIBS) + 1) as pool:
-        futs = [pool.submit(mod._lib) for mod in (scan, fmsearch, lfwalk)]
+        futs = [pool.submit(mod._lib)
+                for mod in (scan, fmsearch, lfwalk, gcx)]
         futs.append(pool.submit(native.available))
         for fut in futs:
             fut.result()
@@ -329,7 +342,7 @@ def phase_build(build):
           "(SA-IS, BWT, rank vectors, LF walks, wavelet fill, inflate, "
           "deflate, LPF)")
     for name, mod in (("scan", scan), ("fm_search", fmsearch),
-                      ("lf_walk", lfwalk)):
+                      ("lf_walk", lfwalk), ("gcx", gcx)):
         print(f"# {name} kernels loaded in {mod.INIT_SECONDS * 1e3:.1f} ms "
               "(the library's CUDA runtime set up, every path kernel's "
               "attributes read), before any launch")
@@ -753,6 +766,8 @@ def phase_end_to_end(dev, workdir):
           "from the input")
     check(dlaunches["lf_walk.decode"] > 0, "lf_walk.decode was not "
           "launched by the decompress path")
+    check(dlaunches["gcx.decode"] > 0, "gcx.decode was not launched by the "
+          "decompress path")
     print(f"# port CLI decompress: {secs:.2f} s -> {total / 1e6 / secs:.2f} "
           f"MB/s end to end, {len(a)} bytes byte-identical to the host "
           f"tier's (md5 {hashlib.md5(a).hexdigest()}), md5 equal to the "
@@ -1263,6 +1278,62 @@ def phase_query_kernels(dev):
     return err, times, bounds, rr_bounds
 
 
+def phase_gcx(dev):
+    """Phase 15: the .gcx decode kernels against their plain versions at
+    the benchmark's two lift shapes, timed; the lift beside the host
+    decode."""
+    import numpy as np
+    from gecoz_tpu_torch.index import iwt, rankbv, ssa
+    from gecoz_tpu_torch.ops import gcx, scan
+    err, times, bounds = {}, {}, {}
+    rng = np.random.default_rng(29)
+    for label, m in (("hg38", 1_459_687), ("swissprot", 742)):
+        n = 32 * m - int(rng.integers(0, 32))
+        rows = np.sort(rng.choice(n, m, replace=False))
+        bits = np.zeros(n, np.uint8)
+        bits[rows] = 1
+        perm = rng.permutation(m)
+        buf = np.frombuffer(rankbv.serialize_rbv(rankbv.pack_bits(bits), n)
+                            + iwt.serialize_iwt(perm), np.uint8)
+        index = ssa.SampledSAIndex.deserialize(buf, n, 5)
+        raw, at = gcx.upload(index, dev)
+        words, pc = timed_pair(
+            "gcx.unpack", lambda: gcx.unpack(raw, n, m, at),
+            lambda: gcx.unpack_ref(raw, n, m, at), 10, err, times,
+            f"gcx.unpack {label}")
+        inc = scan.cumsum_i32(pc)
+        key = f"gcx.decode {label}"
+        got = timed_pair(
+            "gcx.decode", lambda: gcx.decode(words, inc, n, m),
+            lambda: gcx.decode_ref(words, inc, n, m), 10, err, times, key)
+        check(np.array_equal(got[0].cpu().numpy(), perm)
+              and np.array_equal(got[2].cpu().numpy(), rows),
+              f"{key}: the decode differs from the values and rows written")
+        # unpack: the streams read once, words and popcounts written; decode:
+        # the words and ranks read once, 12 bytes a value and the mark's
+        # prefixes written
+        bounds[f"gcx.unpack {label}"] = raw.numel() + 8 * words.numel()
+        bounds[key] = 8 * words.numel() + 12 * m + 4 * ((n + 31) // 32)
+        lifts, hosts = [], []
+        for _ in range(5):
+            fresh = ssa.SampledSAIndex.deserialize(buf, n, 5)
+            lifts.append(wall(lambda: gcx.lift(fresh, dev))[1])
+            fresh = ssa.SampledSAIndex.deserialize(buf, n, 5)
+            t0 = time.perf_counter()
+            np.sort(fresh.sampled_rows()[0])
+            _ = fresh.wsa.perm, fresh.find(np.int64(0))
+            hosts.append(time.perf_counter() - t0)
+        print(f"# {key}: m {m}, n {n}, {int(m).bit_length()} levels; bytes "
+              f"bounds unpack {bound_ms(bounds[f'gcx.unpack {label}']):.4f} "
+              f"ms, decode {bound_ms(bounds[key]):.4f} ms; lift (the stored "
+              f"bytes up, unpack, scan, decode, one sync) "
+              f"{1e3 * min(lifts):.3f}-{1e3 * max(lifts):.3f} ms on the host "
+              f"clock, the host decode it replaced (sampled_rows, the sort, "
+              f"wsa.perm, the wrap row) {1e3 * min(hosts):.3f}-"
+              f"{1e3 * max(hosts):.3f} ms")
+    return err, times, bounds
+
+
 def locate_reads(blk, rows) -> int:
     """Random 4-byte reads the locate walks from `rows` make: a plain replay
     of `lfwalk.locate_walks_ref` on the card counting, at every step, the
@@ -1729,7 +1800,7 @@ def phase_wide_alphabets(dev, workdir):
     os.unlink(fa)
     reader = GecozReader(os.path.join(workdir, "protein64.gcz"))
     fm = reader.read(reader.headers[0])
-    _ = fm.bwt, fm.index.sampled_rows()       # the host's parts, once
+    _ = fm.bwt                                # the host BWT, once
     nb = fm.length
     for planes in (False, True):
         blk, peak = peak_of(dev, lambda: fmq.with_lf_table(
@@ -1795,7 +1866,7 @@ def phase_wide_alphabets(dev, workdir):
         f.write(gx)
     reader = GecozReader(p256)
     fm = reader.read(reader.headers[0])
-    _ = fm.bwt, fm.index.sampled_rows()
+    _ = fm.bwt
     print(f"# all256: a {n4}-byte block of 256 symbols encoded on the card "
           f"in {secs:.2f} s")
     reset_counts()
@@ -2254,6 +2325,8 @@ def main() -> int:
         phase_gzip(dev, work, os.path.join(work, "genome.fa"),
                    os.path.join(work, "port.gcz"))
         qerr, qtimes, qbounds, qrr = phase_query_kernels(dev)
+        for got, into in zip(phase_gcx(dev), (qerr, qtimes, qbounds)):
+            into.update(got)
         slaunches = phase_search(dev, work, os.path.join(work, "port.gcz"))
         _, wruns, werr, wtimes, wbounds, wrr = phase_wide_alphabets(dev, work)
         phase_tools(dev, work)
@@ -2283,7 +2356,9 @@ def main() -> int:
             "lf_walk.locate": (slaunches["budget 1 B"],
                                "lf_walk.locate 2^20 rows 64 MiB"),
             "lf_walk.decode.lfk4": (wruns["decompress"],
-                                    "lf_walk.decode lfk4 64 MiB")}
+                                    "lf_walk.decode lfk4 64 MiB"),
+            "gcx.unpack": (dlaunches, "gcx.unpack hg38"),
+            "gcx.decode": (dlaunches, "gcx.decode hg38")}
     for k, e in list(werr.items()) + list(serr.items()):
         qerr[k] = max(qerr.get(k, 0), e)
     qtimes.update(wtimes)

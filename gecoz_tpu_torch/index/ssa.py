@@ -12,7 +12,9 @@ sampled values (>> sampling_factor) in row order.
 The sampling factor is *not* stored; readers recover it from file sizes
 (GSSAIndex.java:62-67, GecozFileReader.java:140-149) and the mark counts
 (ROADMAP C5) — handled by the gcz container layer.  `sampled_rows`, the
-lift every decode reads, refuses marks and values that differ in count.
+lift every host decode reads, refuses marks and values that differ in
+count; the device tier's lift (`ops/gcx.py`, from `stored_streams`) does
+too.
 """
 
 from __future__ import annotations
@@ -92,6 +94,27 @@ class SampledSAIndex:
         return cls(mark, None, sampling_factor,
                    wsa_buf=buf[nb:nb + iwt_size(ssa_len)], ssa_len=ssa_len,
                    name=name)
+
+    @property
+    def ssa_len(self) -> int:
+        """Number of sampled values (ceil(rows / rate))."""
+        if self._ssa_len is not None:
+            return self._ssa_len
+        return len(self._wsa.perm)
+
+    def stored_streams(self) -> tuple[np.ndarray, np.ndarray]:
+        """The mark's and the IWT's serialized streams, interleaved with
+        their rank counters as the .gcx stores them: the bytes the device
+        tier decodes (`ops/gcx.py`).  Views of the bytes read; an index built
+        in memory serializes its own.  Materializes neither `wsa` nor the
+        mark's rank tiers, so point queries stay in place."""
+        mark = self.mark._raw
+        if mark is None:
+            mark = np.frombuffer(self.mark.serialize(), dtype=np.uint8)
+        wsa = self._wsa_buf
+        if wsa is None:
+            wsa = np.frombuffer(self._wsa.serialize(), dtype=np.uint8)
+        return mark, wsa
 
     # -- queries (GSSAIndex.get / find) ------------------------------------
 

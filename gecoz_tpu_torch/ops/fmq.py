@@ -42,6 +42,9 @@ Differences from the reference:
 * The decode lift (`device_block_from_fm(..., planes=False)`) builds no
   bit planes, since the decode walks read none; c comes from a histogram
   of the BWT.  The reference's decode builds them.
+* The lift decodes the .gcx on the device from its packed bits
+  (`ops/gcx.py`, the kernel of `csrc/gcx.cu` on the card); the reference
+  decodes the sampled rows and values on the host and uploads them.
 """
 
 from __future__ import annotations
@@ -51,7 +54,7 @@ from dataclasses import dataclass, fields, replace
 import numpy as np
 import torch
 
-from gecoz_tpu_torch.ops import fmsearch, lfwalk
+from gecoz_tpu_torch.ops import fmsearch, gcx, lfwalk
 from gecoz_tpu_torch.ops.fmsearch import occ_inclusive
 from gecoz_tpu_torch.ops.fmsearch import popcount32 as _popcount32
 from gecoz_tpu_torch.ops.sa_device import check_strategy
@@ -340,65 +343,54 @@ def build_device_block(bwt: torch.Tensor, sa: torch.Tensor, sf: int,
         **_no_tables(dev))
 
 
-def build_device_block_parts(bwt: torch.Tensor, mark_rows: torch.Tensor,
-                             perm: torch.Tensor, wrap_row: int, sf: int,
-                             symbols: tuple[int, ...],
+def build_device_block_parts(bwt: torch.Tensor, parts: gcx.DeviceGcx,
+                             sf: int, symbols: tuple[int, ...],
                              planes: bool = True) -> DeviceFMBlock:
     """Query state on the BWT's device from the decode-path parts: the BWT
-    plus the .gcx sampled rows (int32, ascending) and sampled values >> sf
-    (int32, row order); no suffix array (reference
-    `build_device_block_parts_jit`).  planes=False leaves the bit planes
-    empty and takes c from a histogram (decode reads no plane)."""
+    plus the .gcx decoded on the same device (`gcx.lift`, the wrap row
+    included); no suffix array (reference `build_device_block_parts_jit`,
+    which takes the sampled rows and values and the wrap row and builds
+    the mark plane and the inverse itself).  planes=False leaves the bit
+    planes empty and takes c from a histogram (decode reads no plane)."""
     dev = bwt.device
-    n = bwt.shape[0]
-    m = perm.shape[0]
     if planes:
         words, pres, c, sym_plane = _symbol_planes(bwt, symbols)
     else:
         words = torch.zeros(0, dtype=_I32, device=dev)
         pres = torch.zeros(0, dtype=_I32, device=dev)
         c, sym_plane = _histogram_c(bwt), _sym_plane(symbols, dev)
-    marked = torch.zeros(n, dtype=torch.uint8, device=dev)
-    marked[mark_rows.long()] = 1
-    mark_words, mark_pre = _plane(marked)
-    inv = torch.zeros(m, dtype=_I32, device=dev)
-    inv[perm.long()] = torch.arange(m, dtype=_I32, device=dev)
     return DeviceFMBlock(
         bwt=bwt, plane_words=words, plane_pres=pres, c=c,
-        sym_plane=sym_plane,
-        wrap_row=torch.tensor(wrap_row, dtype=_I32, device=dev),
-        mark_words=_u32_as_i32(mark_words), mark_pre=mark_pre,
-        mark_rows=mark_rows.to(_I32), ssa_perm=perm.to(_I32), ssa_inv=inv,
-        sf=int(sf), **_no_tables(dev))
+        sym_plane=sym_plane, sf=int(sf), **parts._asdict(),
+        **_no_tables(dev))
 
 
 def device_block_from_fm(fm, device, planes: bool = True) -> DeviceFMBlock:
     """Lift a host FMIndex (gecoz_tpu.index.fm) onto `device`: the BWT
-    (decoded on the host) and the two .gcx arrays go up, planes, marks and
-    c are built there.  Any alphabet, up to all 256 byte values; the
-    planes cost about sigma/4 bytes a character, and planes=False (the
-    decode lift) skips them.  Phases: `lift.bwt` (the host BWT, cached
-    once decoded), `lift.gcx` (the .gcx arrays decoded on the host) and
-    `lift.build` (the uploads and the build's launches)."""
+    (decoded on the host) and the .gcx's stored bytes go up; the .gcx is
+    decoded there (`gcx.lift`: sampled rows and values, the mark plane and
+    the wrap row), and planes and c are built there.  Any alphabet, up to
+    all 256 byte values; the planes cost about sigma/4 bytes a character,
+    and planes=False (the decode lift) skips them.  Phases: `lift.bwt` (the
+    host BWT, cached once decoded), `lift.gcx` (the .gcx decoded on the
+    device, ending in a sync; counters `lift.gcx_values` and
+    `lift.gcx_values_device`, the sampled values lifted and those the
+    device decoded) and `lift.build` (the BWT's upload and the build's
+    launches)."""
     fm._require_index()
     n = fm.length
+    dev = torch.device(device)
     with metrics.phase("lift.bwt"):
         bwt = fm.bwt
     with metrics.phase("lift.gcx", n):
-        rows, _ = fm.index.sampled_rows()
-        rows = np.sort(rows)
-        perm = fm.index.wsa.perm
-        wrap_row = int(fm.wrap_row)
-    dev = torch.device(device)
-
-    def up(a, dtype):
-        return torch.from_numpy(np.ascontiguousarray(a, dtype=dtype)).to(dev)
+        metrics.count("lift.gcx_values", fm.index.ssa_len)
+        parts = gcx.lift(fm.index, dev)
     with metrics.phase("lift.build", n):
         counts = fm.hswt.symbol_counts()
         symbols = tuple(int(x) for x in np.flatnonzero(counts))
         return build_device_block_parts(
-            up(bwt, np.uint8), up(rows, np.int32), up(perm, np.int32),
-            wrap_row, int(fm.index.sampling_factor), symbols, planes)
+            torch.from_numpy(np.ascontiguousarray(bwt, dtype=np.uint8))
+            .to(dev), parts, int(fm.index.sampling_factor), symbols, planes)
 
 
 # -- LF mapping and its tables -----------------------------------------------

@@ -16,7 +16,8 @@ import numpy as np
 import pytest
 import torch
 
-from gecoz_tpu_torch.ops import fmq, fmsearch, lfwalk, scan
+from gecoz_tpu_torch.index import iwt, rankbv, ssa
+from gecoz_tpu_torch.ops import fmq, fmsearch, gcx, lfwalk, scan
 from gecoz_tpu_torch.ops.fmq import block_to_numpy
 from gecoz_tpu_torch.ops.pipeline import index_block
 from gecoz_tpu_torch.ops.sa import bwt_from_sa, suffix_array_numpy
@@ -399,6 +400,71 @@ def test_lf_locate_matches_plain_at_the_limits(cuda, gen, p_mark):
 def test_lf_kernels_load_before_the_first_launch(cuda):
     lfwalk._lib()
     assert lfwalk.INIT_SECONDS is not None
+
+
+def _gcx_index(gen, m, sf):
+    """A .gcx of m sampled values written by the port's host serializers:
+    m of n = ~m * 2^sf rows marked at random, the values a permutation;
+    (the index read back from the bytes, the marked rows, the values)."""
+    rate = 1 << sf
+    n = int(gen.integers((m - 1) * rate + 1, m * rate + 1))
+    rows = np.sort(gen.choice(n, m, replace=False))
+    bits = np.zeros(n, np.uint8)
+    bits[rows] = 1
+    perm = gen.permutation(m)
+    buf = np.frombuffer(rankbv.serialize_rbv(rankbv.pack_bits(bits), n)
+                        + iwt.serialize_iwt(perm), np.uint8)
+    return ssa.SampledSAIndex.deserialize(buf, n, sf), rows, perm
+
+
+# hg38's chr21 block (46,709,983 rows at rate 32) and a Swiss-Prot block of
+# the benchmark's shape (~23,700 residues)
+@pytest.mark.parametrize("m", [1_459_687, 742], ids=["hg38", "swissprot"])
+def test_gcx_kernels_match_plain(cuda, gen, m):
+    index, rows, perm = _gcx_index(gen, m, 5)
+    n = index.mark.length
+    raw, at = gcx.upload(index, cuda)
+    before = dict(gcx.LAUNCHES)
+    words, pc = gcx.unpack(raw, n, m, at)
+    for g, w in zip((words, pc), gcx.unpack_ref(raw, n, m, at)):
+        assert torch.equal(g, w)
+    inc = scan.cumsum_i32(pc)
+    got = gcx.decode(words, inc, n, m)
+    torch.cuda.synchronize()
+    assert gcx.LAUNCHES == {k: v + 1 for k, v in before.items()}
+    for g, w in zip(got, gcx.decode_ref(words, inc, n, m)):
+        assert torch.equal(g, w)
+    assert np.array_equal(got[0].cpu().numpy(), perm)
+    assert np.array_equal(got[2].cpu().numpy(), rows)
+    assert int(got[4][1]) == rows[np.argmin(perm)]
+    # the lift of a block: one launch of each, the parts of the CPU's lift
+    card = gcx.lift(index, cuda)
+    assert gcx.LAUNCHES == {k: v + 2 for k, v in before.items()}
+    for a, b in zip(card, gcx.lift(index, "cpu")):
+        assert torch.equal(a.cpu(), b)
+
+
+def test_gcx_entry_points_refuse_what_the_kernels_do_not_take(cuda, gen):
+    index, _, _ = _gcx_index(gen, 1000, 5)
+    n = index.mark.length
+    raw, at = gcx.upload(index, cuda)
+    words, pc = gcx.unpack(raw, n, 1000, at)
+    inc = scan.cumsum_i32(pc)
+    before = dict(gcx.LAUNCHES)
+    with pytest.raises(TypeError, match="uint8"):
+        gcx.unpack(raw.to(torch.int32), n, 1000, at)
+    with pytest.raises(TypeError, match="int32"):
+        gcx.decode(words.long(), inc, n, 1000)
+    with pytest.raises(TypeError, match="expected"):
+        gcx.decode(words, inc.cpu(), n, 1000)
+    with pytest.raises(TypeError, match="strided"):
+        gcx.decode(torch.stack([words, words], 1)[:, 0], inc, n, 1000)
+    assert gcx.LAUNCHES == before
+
+
+def test_gcx_kernels_load_before_the_first_launch(cuda):
+    gcx._lib()
+    assert gcx.INIT_SECONDS is not None
 
 
 def test_decompress_and_search_on_card_equal_host_tier(cuda, gen, tmp_path):

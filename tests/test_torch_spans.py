@@ -14,7 +14,9 @@ open, on the CPU.
   search opens `search.block` once a block (counted by `search.blocks`,
   those with a hit by `search.blocks_hit`), `search.ends` once a block
   with a hit, and packs its patterns once; a compress plans its blocks in
-  `index.plan_blocks`.
+  `index.plan_blocks`.  A lift counts its sampled values once a block,
+  those it lifts (`lift.gcx_values`) and those the device decoded
+  (`lift.gcx_values_device`), inside `lift.gcx`.
 """
 
 import io
@@ -268,6 +270,33 @@ def test_no_span_or_counter_per_read(compressed, tmp_path, rng,
                           device="cpu")
         seen.append(dict(opened))
     assert seen[0] == seen[1] and seen[0]["phase"] > 0
+
+
+@pytest.mark.parametrize("verb,parent", [("decompress", "decode.lift"),
+                                         ("search", "search.tables")])
+def test_the_lift_counts_its_sampled_values_once_a_block(
+        compressed, tmp_path, rng, monkeypatch, verb, parent):
+    recs, _, gcz, _ = compressed
+    calls = []
+
+    def counting(name, n=1, _orig=metrics.count):
+        calls.append(name)
+        _orig(name, n)
+    monkeypatch.setattr(metrics, "count", counting)
+    metrics.reset()
+    if verb == "decompress":
+        driver.decompress(gcz, tmp_path / "back.fa", device="cpu")
+    else:
+        qa = tmp_path / "q.fa"
+        write_fasta(qa, _reads(rng, recs, 40))
+        driver.gff_search(gcz, qa, out=io.StringIO(), device="cpu")
+    st = metrics.stats()
+    reader = GecozReader(gcz)
+    sampled = sum(reader.read(h).index.ssa_len for h in reader.headers)
+    assert st["lift.gcx"].parent == parent
+    for name in ("lift.gcx_values", "lift.gcx_values_device"):
+        assert calls.count(name) == len(reader.headers) == 2
+        assert st[name].count == sampled
 
 
 @pytest.mark.parametrize("shape", ["fasta", "fastq_multi_line"])
