@@ -16,8 +16,8 @@ Phases (any mismatch or exception exits non-zero):
    events, and beside them the one PyTorch call that computes the same
    function where there is one (torch.cumsum in int32, torch.cummax); the
    tile-shape sweep of the add and the look-back scratch's bytes;
-3. the run-aware suffix sort (sort and scatter strategies, with and
-   without the run-key table) against the host library's C++ SA-IS;
+3. the run-aware suffix sort (with and without the run-key table) against
+   the host library's C++ SA-IS;
 4. the query-state build (`index_block`) against the port's plain path on
    the CPU, field by field, and its time at 4 MiB and 64 MiB;
 5. end to end (each run through the CLI on the card with this process's
@@ -44,15 +44,15 @@ Phases (any mismatch or exception exits non-zero):
    record;
 8. the query kernels at full width against their plain versions on the
    card, bit-exact, then timed: K2's decode walks (k = 16 rows and
-   per-step plain rows of a 64 MiB block, the k = 16 walk beside its first
-   design (v1); packed rows at the probe's 2048 walks x 32 steps over a 2 Mi block) and locate
+   per-step plain rows of a 64 MiB block; packed rows at the probe's 2048
+   walks x 32 steps over a 2 Mi block) and locate
    walks (2^20 rows), both beside the card's random-read rate (a library
    gather of random rows), the locate walks' reads (a plain replay of the
    walks) at the card's random 4-byte row rate giving their random-read
    bound; K1's search (2^20 16-mers, 20,000 reads of
    16-150 bases on both strands) on the rank table (`with_rank_blocks`,
-   timed), beside its first design (the flat planes), with the distinct
-   32-byte sectors each search reads in both layouts (a plain replay of
+   timed), with the distinct 32-byte sectors each search reads on the
+   rank table and on the flat planes (a plain replay of
    the search) and the random-read bound those sectors give at the card's
    rate for random 32-byte rows; each beside its bytes bound;
 9. GFF3 search of 1,000 reads through the port's CLI on the card, byte for
@@ -488,11 +488,8 @@ def phase_suffix_sort(dev):
         s_dev = torch.from_numpy(s).to(dev)
         tab_dev = torch.from_numpy(tab).to(dev)
         variants = {
-            "sort+tok_table": dict(strategy="sort", tok_table=tab_dev,
-                                   r1_keys=rk),
-            "sort": dict(strategy="sort", tok_table=None, r1_keys=None),
-            "scatter": dict(strategy="scatter", tok_table=tab_dev,
-                            r1_keys=rk),
+            "sort+tok_table": dict(tok_table=tab_dev, r1_keys=rk),
+            "sort": dict(tok_table=None, r1_keys=None),
         }
         for name, kw in variants.items():
             def run():
@@ -1074,7 +1071,7 @@ def phase_query_kernels(dev):
                                                 device=dev) + 1) * rate)
     cmap = fmq.code_map(blk)
     key = "lf_walk.decode lfk16 64 MiB"
-    (want,) = timed_pair(
+    timed_pair(
         "lf_walk.decode",
         lambda: lfwalk.decode_walks(blk.lfk_tab, seeds, rate, "lfk16",
                                     code_map=cmap),
@@ -1083,17 +1080,7 @@ def phase_query_kernels(dev):
         10, err, times, key)
     # seeds in, 12-byte rows read (rate / 16 a walk), the text out
     bounds[key] = 4 * W + 12 * W * (rate // 16) + W * rate
-
-    def dec(v1):
-        return lambda: lfwalk._decode_launch(blk.lfk_tab, seeds, rate,
-                                             "lfk16", None, cmap, v1)
-    design_sweep(key, {"v1 design (a walk a thread, three 4-byte loads a "
-                       "row)": dec(True),
-                       "staged tiles (a warp's output written as whole "
-                       "lines, a row in two loads)": dec(False)},
-                 want, 10, bounds[key])
     print(f"# lfk16 table {blk.lfk_tab.numel() * 4 / n:.0f} B/char")
-    del want
     timed_pair("lf_walk.decode",
                lambda: lfwalk.decode_walks(blk.lf_tab, seeds, rate, "plain",
                                            bwt=blk.bwt),
@@ -1179,7 +1166,7 @@ def phase_query_kernels(dev):
 
     def k1_shape(key, pats, lens, host, reps, nbytes):
         """K1 at one shape: bit-exact, timed in turns with its plain
-        version, beside its first design, its sectors and its bounds.
+        version, beside its sectors and its bounds.
         `host` is the lengths' host copy, which the wrapper checks (as
         `find_batched` passes it) without reading `lens` back."""
         got = timed_pair("fm_search",
@@ -1188,16 +1175,6 @@ def phase_query_kernels(dev):
                          lambda: fmsearch.backward_search_ref(k_blk, pats,
                                                               lens),
                          reps, err, times, key)
-        both = torch.cat(got)
-
-        def launch(v1):
-            return lambda: torch.cat(fmsearch._search_launch(
-                k_blk, pats, lens, v1))
-        design_sweep(key, {"first design (flat planes, a pattern byte a "
-                           "step)": launch(True),
-                           "rank blocks (one 32-byte block a lookup, "
-                           "16-byte pattern loads)": launch(False)},
-                     both, reps, nbytes)
         (flat, blocks), (uflat, ublocks) = search_sectors(k_blk, pats, lens)
         B = pats.shape[0]
         bounds[key] = nbytes

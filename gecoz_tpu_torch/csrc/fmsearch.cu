@@ -34,9 +34,6 @@
 //     in registers, one load per 16 columns (a 16-mer row is one load, and a
 //     warp's 16-mers are 512 contiguous bytes), not one byte a step.  The
 //     aligned word around a pattern byte never leaves that byte's page.
-// The first design (the flat planes, one pattern byte a step) stays
-// as gecoz_fm_search_v1: chip_smoke.py times it beside the new one; nothing
-// else launches it.
 //
 // Offsets into the tables, the patterns and the k-mer table are 64-bit.
 
@@ -189,66 +186,6 @@ __global__ void __launch_bounds__(kThreads)
   ep_out[b] = ep;
 }
 
-// -- the first design, for the old-beside-new timing ------------------------
-
-// Count of the symbol with plane row `row` in BWT[0..pos] (0 when pos < 0 or
-// the symbol is absent: row < 0), from the flat planes.
-__device__ __forceinline__ int32_t occ_flat(const uint32_t* __restrict__ words,
-                                            const int32_t* __restrict__ pres,
-                                            int64_t W, int32_t row,
-                                            int32_t pos) {
-  if (pos < 0 || row < 0) return 0;
-  const int64_t base = static_cast<int64_t>(row) * W + (pos >> 5);
-  const uint32_t mask = (2u << (pos & 31)) - 1u;
-  return __ldg(pres + base) + __popc(__ldg(words + base) & mask);
-}
-
-__global__ void __launch_bounds__(kThreads)
-    fm_search_v1(const uint8_t* __restrict__ pat,
-                 const int32_t* __restrict__ len, int64_t B, int64_t L,
-                 const uint32_t* __restrict__ words,
-                 const int32_t* __restrict__ pres, int64_t W,
-                 const int32_t* __restrict__ c_g,
-                 const int32_t* __restrict__ plane_g,
-                 const int32_t* __restrict__ kmer_tab, int bits, int k,
-                 int32_t* __restrict__ sp_out, int32_t* __restrict__ ep_out) {
-  __shared__ int32_t c[257];
-  __shared__ int32_t plane[256];
-  __shared__ int64_t offs[kMaxK + 2];
-  load_small_tables(c_g, plane_g, bits, k, c, plane, offs);
-
-  const int64_t b = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
-  if (b >= B) return;
-  const uint8_t* p = pat + b * L;
-  auto at = [p](int64_t col) { return static_cast<int>(p[col]); };
-  const int32_t n_b = len[b];
-  int32_t sp, ep;
-  int64_t start_col;
-  if (k > 0) {
-    const int2 seed = kmer_seed(at, L, n_b, plane, offs, kmer_tab, bits, k);
-    sp = seed.x;
-    ep = seed.y;
-    start_col = L - k;
-  } else {
-    const int last = p[L - 1];
-    sp = c[last];
-    ep = c[last + 1] - 1;
-    start_col = L - 1;
-  }
-  for (int64_t col = start_col - 1; col >= 0 && col >= L - n_b && sp <= ep;
-       --col) {
-    const int ch = p[col];
-    const int32_t row = plane[ch];
-    const int32_t cs = c[ch];
-    const int32_t lo = occ_flat(words, pres, W, row, sp - 1);
-    const int32_t hi = occ_flat(words, pres, W, row, ep);
-    sp = cs + lo;
-    ep = cs + hi - 1;
-  }
-  sp_out[b] = sp;
-  ep_out[b] = ep;
-}
-
 unsigned grid_of(int64_t B) {
   return static_cast<unsigned>((B + kThreads - 1) / kThreads);
 }
@@ -279,29 +216,9 @@ int gecoz_fm_search(const void* patterns, const void* lengths, int64_t B,
   return cudaGetLastError();
 }
 
-// The first design, on the flat planes (W words per plane); otherwise as
-// gecoz_fm_search.
-int gecoz_fm_search_v1(const void* patterns, const void* lengths, int64_t B,
-                       int64_t L, const void* words, const void* pres,
-                       int64_t W, const void* c, const void* sym_plane,
-                       const void* kmer_tab, int bits, int k, void* sp,
-                       void* ep, void* stream) {
-  fm_search_v1<<<grid_of(B), kThreads, 0,
-                 static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint8_t*>(patterns),
-      static_cast<const int32_t*>(lengths), B, L,
-      static_cast<const uint32_t*>(words), static_cast<const int32_t*>(pres),
-      W, static_cast<const int32_t*>(c),
-      static_cast<const int32_t*>(sym_plane),
-      static_cast<const int32_t*>(kmer_tab), bits, k,
-      static_cast<int32_t*>(sp), static_cast<int32_t*>(ep));
-  return cudaGetLastError();
-}
-
-// Loads the search kernel (the path's; the first design loads at its first
-// launch): the first CUDA call of the library's (static) runtime
-// initialises it, and the attribute query loads the kernel, work that would
-// otherwise fall on the first launch.  Returns the error, or 0.
+// Loads the search kernel: the first CUDA call of the library's (static)
+// runtime initialises it, and the attribute query loads the kernel, work
+// that would otherwise fall on the first launch.  Returns the error, or 0.
 int gecoz_fm_init(void) {
   cudaFuncAttributes a;
   return static_cast<int>(

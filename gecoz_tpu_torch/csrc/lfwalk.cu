@@ -51,16 +51,14 @@
 //   (rates are powers of two).  Measured on the card and not taken
 //   (PERF.md): 2 and 4 walks a thread, no faster, and rows padded to 16
 //   bytes, 5% faster for a third more table memory.
-// * locate keeps one walk a thread (lf_locate, the first design): on the
-//   H100 it already reads rows faster than a library gather of as many
-//   random rows, and both alternatives measured on the card were slower
+// * locate keeps one walk a thread (lf_locate): on the H100 it already
+//   reads rows faster than a library gather of as many random rows, and
+//   both alternatives measured on the card were slower
 //   (PERF.md): a persistent kernel whose lanes each held 1-4 walks as small
 //   state machines and took the warp's next row when one ended, and an L2
 //   access-policy window keeping ssa_perm resident while lf_tab streams.
 // * packed and plain rows keep one thread per walk (their tables are the
 //   per-step lf_tab; they are off the default path).
-// The first design of the lfk decode walks stays as gecoz_lf_decode_v1:
-// chip_smoke.py times it beside the new one; nothing else launches it.
 // Offsets into the tables and the output are 64-bit.
 
 #include <cstdint>
@@ -224,35 +222,7 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// ------------------------------------------ first designs (v1, locate)
-
-template <int kMode>
-__global__ void __launch_bounds__(kThreads)
-    lf_decode_v1(const uint32_t* __restrict__ tab,
-                 const int32_t* __restrict__ seeds, int64_t W, int rate,
-                 const uint8_t* __restrict__ map_g, uint8_t* __restrict__ out) {
-  __shared__ uint8_t map[16];
-  if (kMode == kLfk16 || kMode == kLfk8) {
-    if (threadIdx.x < 16) map[threadIdx.x] = map_g[threadIdx.x];
-    __syncthreads();
-  }
-  const int64_t w = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
-  if (w >= W) return;
-  uint8_t* o = out + w * rate;
-  uint32_t idx = static_cast<uint32_t>(seeds[w]);
-  constexpr int K = kMode == kLfk16 ? 16 : kMode == kLfk8 ? 8 : 4;
-  for (int r = 0; r < rate / K; ++r) {
-    Row row;
-    if (kMode == kLfk16) {
-      const uint32_t* p = tab + 3 * static_cast<int64_t>(idx);
-      row.next = __ldg(p); row.a = __ldg(p + 1); row.b = __ldg(p + 2);
-    } else {
-      row = load_row<kMode>(tab, idx);
-    }
-    put_row<kMode>(map, row, o + rate - K * (r + 1));
-    idx = row.next;
-  }
-}
+// ----------------------------------------------------------------- locate
 
 // One walk a thread: 256 threads a block, one block per 256 rows.  A walk
 // ends at the first row with bit 31 set (at most rate + 1 reads); the row's
@@ -368,26 +338,6 @@ int gecoz_lf_locate(const void* tab, const void* rows, int64_t B,
       static_cast<const int32_t*>(mark_pre),
       static_cast<const int32_t*>(ssa_perm), sf, packed,
       static_cast<int32_t*>(out));
-  return cudaGetLastError();
-}
-
-// The first design of the lfk decode walks, timed beside the new one by
-// chip_smoke.py: one thread per walk, three 4-byte loads an lfk16 row.
-int gecoz_lf_decode_v1(const void* tab, const void* seeds, int64_t W,
-                       int rate, int mode, const void* code_map, void* out,
-                       void* stream) {
-  const auto t = static_cast<const uint32_t*>(tab);
-  const auto s = static_cast<const int32_t*>(seeds);
-  const auto m = static_cast<const uint8_t*>(code_map);
-  const auto o = static_cast<uint8_t*>(out);
-  const auto st = static_cast<cudaStream_t>(stream);
-  const unsigned g = grid_for(W);
-  switch (mode) {
-    case kLfk16: lf_decode_v1<kLfk16><<<g, kThreads, 0, st>>>(t, s, W, rate, m, o); break;
-    case kLfk8: lf_decode_v1<kLfk8><<<g, kThreads, 0, st>>>(t, s, W, rate, m, o); break;
-    case kLfk4: lf_decode_v1<kLfk4><<<g, kThreads, 0, st>>>(t, s, W, rate, m, o); break;
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
   return cudaGetLastError();
 }
 

@@ -133,16 +133,15 @@ def _serialize(headers: list[str], n: int, shape: HSWTShape, hswt: HSWT,
 
 def encode_block(data: np.ndarray, headers: list[str],
                  sampling_rate: int = DEFAULT_SAMPLING_RATE,
-                 device: torch.device | str | None = None,
-                 strategy: str = "sort") -> tuple[bytes, bytes]:
+                 device: torch.device | str | None = None
+                 ) -> tuple[bytes, bytes]:
     """Encode one generalized string block -> (gcz_block, gcx_block).
 
     histogram -> shape -> suffix array, BWT, sampled-SA state and wavelet
     nodes (device) -> serialization (host).  `device` defaults to the card.
     """
     from gecoz_tpu_torch.parallel.mesh import encode_blocks
-    return encode_blocks([data], [headers], sampling_rate, device,
-                         strategy=strategy)[0]
+    return encode_blocks([data], [headers], sampling_rate, device)[0]
 
 
 def encode_block_host(data: np.ndarray, headers: list[str],
@@ -172,14 +171,10 @@ class GecozWriter:
 
     def __init__(self, ref_path: str | Path,
                  ssa_path: str | Path | None = None,
-                 sampling_rate: int = DEFAULT_SAMPLING_RATE,
-                 device: torch.device | str | None = None,
                  append: bool = False):
         ref_path = Path(ref_path)
         if ssa_path is None:
             ssa_path = default_gcx_path(ref_path)
-        self.device = device            # of `write` (default: the card)
-        self.sampling_rate = sampling_rate
         mode = "ab" if append else "wb"
         self.ref = open(ref_path, mode)
         try:
@@ -187,11 +182,6 @@ class GecozWriter:
         except OSError:
             self.ref.close()
             raise
-
-    def write(self, headers: list[str], data: np.ndarray) -> None:
-        gcz, gcx = encode_block(data, headers, self.sampling_rate,
-                                self.device)
-        self.write_encoded(gcz, gcx)
 
     def write_encoded(self, gcz: bytes, gcx: bytes) -> None:
         """Append an already-encoded block (the mesh route's output)."""

@@ -57,7 +57,6 @@ import torch
 from gecoz_tpu_torch.ops import fmsearch, gcx, lfwalk
 from gecoz_tpu_torch.ops.fmsearch import occ_inclusive
 from gecoz_tpu_torch.ops.fmsearch import popcount32 as _popcount32
-from gecoz_tpu_torch.ops.sa_device import check_strategy
 from gecoz_tpu_torch.ops.scan import cumsum_i32
 from gecoz_tpu_torch.utils import metrics
 
@@ -298,18 +297,15 @@ def _need_planes(block: DeviceFMBlock, what: str) -> None:
 
 
 def build_device_block(bwt: torch.Tensor, sa: torch.Tensor, sf: int,
-                       symbols: tuple[int, ...],
-                       strategy: str = "sort") -> DeviceFMBlock:
+                       symbols: tuple[int, ...]) -> DeviceFMBlock:
     """Query-state construction on the BWT's device (reference
     `build_device_block_jit`).
 
     `symbols` is the static alphabet (plane order); symbols outside it must
     not occur in `bwt`.  The sampled-row count is exactly ceil(n/rate).
-    "sort" compacts the sampled rows with one partition sort (the
-    reference's TPU branch), "scatter" with nonzero + gather (its CPU
-    branch); both give the same block.
+    The sampled rows are compacted with one partition sort (the
+    reference's TPU branch).
     """
-    check_strategy(strategy)
     dev = bwt.device
     n = bwt.shape[0]
     rate = 1 << sf
@@ -318,19 +314,14 @@ def build_device_block(bwt: torch.Tensor, sa: torch.Tensor, sf: int,
 
     marked = (sa & (rate - 1)) == 0
     mark_words, mark_pre = _plane(marked)
-    if strategy == "scatter":
-        rows = torch.nonzero(marked).flatten()
-        perm = (sa[rows] >> sf).to(_I32)
-        mark_rows = rows.to(_I32)
-    else:
-        # sampled values in row order via one stable partition sort (marked
-        # rows first); the (not-marked, row) key packs into one int31 word,
-        # and its low bits are the select-1 table
-        iota = torch.arange(n, dtype=_I32, device=dev)
-        pkey = ((~marked).to(_I32) << 30) | iota
-        keys_s, order = torch.sort(pkey, stable=True)
-        perm = (sa >> sf)[order[:m]]
-        mark_rows = keys_s[:m] & ((1 << 30) - 1)
+    # sampled values in row order via one stable partition sort (marked
+    # rows first); the (not-marked, row) key packs into one int31 word, and
+    # its low bits are the select-1 table
+    iota = torch.arange(n, dtype=_I32, device=dev)
+    pkey = ((~marked).to(_I32) << 30) | iota
+    keys_s, order = torch.sort(pkey, stable=True)
+    perm = (sa >> sf)[order[:m]]
+    mark_rows = keys_s[:m] & ((1 << 30) - 1)
     inv = torch.zeros(m, dtype=_I32, device=dev)
     inv[perm.long()] = torch.arange(m, dtype=_I32, device=dev)
     wrap = torch.argmax((sa == 0).to(_I32)).to(_I32)

@@ -54,11 +54,9 @@ def _lib() -> ctypes.CDLL:
     lib.gecoz_fm_search_max_k.argtypes = []
     lib.gecoz_fm_search.argtypes = [P, P, I64, I64, P, I64, P, P, P, I, I,
                                     P, P, P]
-    lib.gecoz_fm_search_v1.argtypes = [P, P, I64, I64, P, P, I64, P, P, P, I,
-                                       I, P, P, P]
     lib.gecoz_fm_init.argtypes = []
     for fn in (lib.gecoz_fm_search_max_k, lib.gecoz_fm_search,
-               lib.gecoz_fm_search_v1, lib.gecoz_fm_init):
+               lib.gecoz_fm_init):
         fn.restype = I
     lib.gecoz_cuda_error_string.argtypes = [I]
     lib.gecoz_cuda_error_string.restype = ctypes.c_char_p
@@ -214,14 +212,12 @@ def _check_rank_blocks(block) -> int:
     return wb
 
 
-def _search_launch(block, patterns, lengths, v1: bool = False):
-    """One launch of the search kernel on checked CUDA tensors; v1=True
-    launches the first design (the flat planes) instead, which
-    chip_smoke.py times beside it."""
+def _search_launch(block, patterns, lengths):
+    """One launch of the search kernel on checked CUDA tensors."""
     B, L = patterns.shape
     sp = torch.empty(B, dtype=_I32, device=patterns.device)
     ep = torch.empty_like(sp)
-    wb = 0 if v1 else _check_rank_blocks(block)
+    wb = _check_rank_blocks(block)
     if B == 0:
         return sp, ep
     lib = _lib()
@@ -235,18 +231,11 @@ def _search_launch(block, patterns, lengths, v1: bool = False):
     kmer = block.kmer_tab.data_ptr() if k else None
     with torch.cuda.device(patterns.device):
         stream = torch.cuda.current_stream(patterns.device).cuda_stream
-        if v1:
-            rc = lib.gecoz_fm_search_v1(
-                patterns.data_ptr(), lengths.data_ptr(), B, L,
-                block.plane_words.data_ptr(), block.plane_pres.data_ptr(),
-                block.W, block.c.data_ptr(), block.sym_plane.data_ptr(),
-                kmer, bits, k, sp.data_ptr(), ep.data_ptr(), stream)
-        else:
-            rc = lib.gecoz_fm_search(
-                patterns.data_ptr(), lengths.data_ptr(), B, L,
-                block.rank_blocks.data_ptr(), wb, block.c.data_ptr(),
-                block.sym_plane.data_ptr(), kmer, bits, k, sp.data_ptr(),
-                ep.data_ptr(), stream)
+        rc = lib.gecoz_fm_search(
+            patterns.data_ptr(), lengths.data_ptr(), B, L,
+            block.rank_blocks.data_ptr(), wb, block.c.data_ptr(),
+            block.sym_plane.data_ptr(), kmer, bits, k, sp.data_ptr(),
+            ep.data_ptr(), stream)
     if rc != 0:
         msg = lib.gecoz_cuda_error_string(rc).decode()
         raise RuntimeError(f"fm_search kernel (B={B}, L={L}) was not "

@@ -65,9 +65,7 @@ def _lib() -> ctypes.CDLL:
     P, I, I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
     lib.gecoz_lf_decode.argtypes = [P, P, P, I64, I, I, P, P, P]
     lib.gecoz_lf_locate.argtypes = [P, P, I64, P, P, P, I, I, P, P]
-    lib.gecoz_lf_decode_v1.argtypes = [P, P, I64, I, I, P, P, P]
-    for fn in (lib.gecoz_lf_decode, lib.gecoz_lf_locate,
-               lib.gecoz_lf_decode_v1, lib.gecoz_lf_init):
+    for fn in (lib.gecoz_lf_decode, lib.gecoz_lf_locate, lib.gecoz_lf_init):
         fn.restype = ctypes.c_int
     lib.gecoz_lf_init.argtypes = []
     lib.gecoz_cuda_error_string.argtypes = [ctypes.c_int]
@@ -195,11 +193,8 @@ def decode_walks(tab: torch.Tensor, seeds: torch.Tensor, rate: int,
     return out
 
 
-def _decode_launch(tab, seeds, rate, mode, bwt, code_map,
-                   v1: bool = False) -> torch.Tensor:
-    """One launch of the decode kernel on checked CUDA tensors; v1=True
-    launches the first design of the lfk modes instead, which chip_smoke.py
-    times beside it."""
+def _decode_launch(tab, seeds, rate, mode, bwt, code_map) -> torch.Tensor:
+    """One launch of the decode kernel on checked CUDA tensors."""
     W = seeds.shape[0]
     out = torch.empty((W, rate), dtype=torch.uint8, device=seeds.device)
     if W == 0:
@@ -207,15 +202,10 @@ def _decode_launch(tab, seeds, rate, mode, bwt, code_map,
     lib = _lib()
     cmap = code_map.data_ptr() if mode in ("lfk16", "lfk8") else None
     with torch.cuda.device(seeds.device):
-        if v1:
-            rc = lib.gecoz_lf_decode_v1(
-                tab.data_ptr(), seeds.data_ptr(), W, rate, _MODE_ID[mode],
-                cmap, out.data_ptr(), _stream(seeds.device))
-        else:
-            rc = lib.gecoz_lf_decode(
-                tab.data_ptr(), bwt.data_ptr() if mode == "plain" else None,
-                seeds.data_ptr(), W, rate, _MODE_ID[mode], cmap,
-                out.data_ptr(), _stream(seeds.device))
+        rc = lib.gecoz_lf_decode(
+            tab.data_ptr(), bwt.data_ptr() if mode == "plain" else None,
+            seeds.data_ptr(), W, rate, _MODE_ID[mode], cmap, out.data_ptr(),
+            _stream(seeds.device))
     _raise_on(rc, f"decode ({mode}, W={W}, rate={rate})")
     return out
 

@@ -27,8 +27,7 @@ def index_block(s: torch.Tensor, sf: int = 5,
                 m_pad: int | None = None,
                 tok_table: torch.Tensor | None = None,
                 ell_bits: int | None = None,
-                r1_keys: int | None = None,
-                strategy: str = "sort") -> DeviceFMBlock:
+                r1_keys: int | None = None) -> DeviceFMBlock:
     """Raw block bytes (uint8 tensor) -> query state on the same device.
 
     sa_impl 'runs' (default) is robust to the long equal-symbol runs of
@@ -39,16 +38,14 @@ def index_block(s: torch.Tensor, sf: int = 5,
     if sa_impl == "runs":
         sa, bwt = _suffix_array_runs(
             s, syms=symbols if len(symbols) <= 7 else None, m_pad=m_pad,
-            tok_table=tok_table, ell_bits=ell_bits, r1_keys=r1_keys,
-            strategy=strategy)
+            tok_table=tok_table, ell_bits=ell_bits, r1_keys=r1_keys)
     elif sa_impl == "kmer":
         table, bits = dense_table(symbols)
-        sa = _suffix_array(s, torch.from_numpy(table), bits=bits,
-                           strategy=strategy)
+        sa = _suffix_array(s, torch.from_numpy(table), bits=bits)
         bwt = bwt_device(s, sa)
     else:
         raise ValueError(f"sa_impl must be runs or kmer, got {sa_impl!r}")
-    return build_device_block(bwt, sa, sf, symbols, strategy=strategy)
+    return build_device_block(bwt, sa, sf, symbols)
 
 
 def index_and_query(s: torch.Tensor, patterns: torch.Tensor,

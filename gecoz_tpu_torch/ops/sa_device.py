@@ -5,11 +5,11 @@ algorithms, names and branch structure follow the reference; see its
 docstrings for the why of each step.  What changes in PyTorch:
 
 * The reference picks scatters (its CPU branch) or sorts (its TPU branch)
-  when the program is traced (`_scatter_is_cheap`).  Here the choice is an
-  explicit argument, ``strategy="sort"|"scatter"``, both branches are kept,
-  and both give the same (sa, bwt).  ``"sort"`` is the default: it is the
-  branch the reference runs on its accelerator and the one that carries
-  all three scan kernels.
+  when the program is traced (`_scatter_is_cheap`).  Here the sort branch
+  is the only one: a permutation is applied by a sort and a gather, and
+  the compaction and the next-run-rank delivery are its sort forms.  It
+  carries all three scan kernels, and on an H100 the 64 MiB run-aware sort
+  took 111.9-114.9 ms on it against 126.0-132.5 ms on the scatter branch.
 * `lax.sort` with several keys has no torch counterpart: `lexsort` runs
   LSD passes of a stable `torch.sort`, two 32-bit keys packed per int64.
   Sorting stably everywhere gives the reference's outputs (its tie
@@ -34,8 +34,6 @@ from gecoz_tpu_torch.ops.sa_host import (RUN_THRESHOLD, dense_table,
 from gecoz_tpu_torch.ops.scan import cumsum_i32, fill_fwd_i32, fill_rev_i32
 from gecoz_tpu_torch.utils import metrics
 
-STRATEGIES = ("sort", "scatter")
-
 # final-sort forms of `_suffix_array_runs` (reference lines 551 and 567):
 # below FINAL_CODE_LIMIT (with a static alphabet) the value operand packs
 # (position << 4 | 4-bit BWT code), below FINAL_BYTE_LIMIT (position << 8 |
@@ -48,24 +46,11 @@ _I32 = torch.int32
 _U32_MASK = 0xFFFFFFFF
 
 
-def check_strategy(strategy: str) -> None:
-    if strategy not in STRATEGIES:
-        raise ValueError(f"strategy must be one of {STRATEGIES}, "
-                         f"got {strategy!r}")
-
-
-def apply_perm(dest: torch.Tensor, *vals: torch.Tensor,
-               strategy: str = "sort"):
-    """out[dest[j]] = vals[j] for each value tensor; `dest` a permutation.
-
-    "sort": one sort of `dest` and a gather per value; "scatter": plain
-    scatters."""
-    if strategy == "scatter":
-        idx = dest.long()
-        outs = tuple(torch.empty_like(v).index_put_((idx,), v) for v in vals)
-    else:
-        order = torch.sort(dest, stable=True).indices
-        outs = tuple(v[order] for v in vals)
+def apply_perm(dest: torch.Tensor, *vals: torch.Tensor):
+    """out[dest[j]] = vals[j] for each value tensor; `dest` a permutation:
+    one sort of `dest` and a gather per value."""
+    order = torch.sort(dest, stable=True).indices
+    outs = tuple(v[order] for v in vals)
     return outs if len(outs) > 1 else outs[0]
 
 
@@ -113,27 +98,22 @@ def _group_ranks(sorted_keys) -> torch.Tensor:
     return cumsum_i32(new_group) - 1
 
 
-def _sort_rerank_n(keys, strategy: str = "sort", unsigned: bool = False):
+def _sort_rerank_n(keys, unsigned: bool = False):
     """Sort positions by the key tuple; return (new dense ranks in
     position order, sort order, all-distinct flag)."""
     n = keys[0].shape[0]
     ks, perm = lexsort(keys, unsigned=unsigned)
     ranks_in_order = _group_ranks(ks)
     order = perm.to(_I32)
-    rank = apply_perm(order, ranks_in_order, strategy=strategy)
+    rank = apply_perm(order, ranks_in_order)
     done = bool(ranks_in_order[n - 1] == n - 1)
     metrics.count("sa.rounds")
     return rank, order, done
 
 
-def _sort_rerank(key1, key2, strategy: str = "sort"):
+def _sort_rerank(key1, key2):
     """2-key variant of `_sort_rerank_n`."""
-    return _sort_rerank_n((key1, key2), strategy)
-
-
-def _sort_rerank1(key, strategy: str = "sort"):
-    """1-key variant of `_sort_rerank_n`."""
-    return _sort_rerank_n((key,), strategy)
+    return _sort_rerank_n((key1, key2))
 
 
 def _shift(r: torch.Tensor, k: int, fill: int = -1) -> torch.Tensor:
@@ -147,13 +127,12 @@ def _shift(r: torch.Tensor, k: int, fill: int = -1) -> torch.Tensor:
 
 
 def _suffix_array(s: torch.Tensor, dense: torch.Tensor | None = None,
-                  bits: int = 9, strategy: str = "sort") -> torch.Tensor:
+                  bits: int = 9) -> torch.Tensor:
     """Suffix array of `s` (uint8 [n]) by k-mer-seeded prefix doubling
     (reference `_suffix_array_jit`, 112-165).
 
     `dense` maps byte -> dense code in [1, 2^bits); identity+1 when None.
     """
-    check_strategy(strategy)
     n = s.shape[0]
     if dense is None:
         codes = s.to(_I32) + 1
@@ -167,10 +146,10 @@ def _suffix_array(s: torch.Tensor, dense: torch.Tensor | None = None,
         rank = (rank << bits) | _shift(codes, min(t, n), fill=0)
     # the packed word is a valid (non-dense) rank; round one starts there
     k = min(chars_per, n)
-    rank, order, done = _sort_rerank(rank, _shift(rank, k), strategy)
+    rank, order, done = _sort_rerank(rank, _shift(rank, k))
     k = chars_per * 2
     while not done and k < 2 * n:
-        rank, order, done = _sort_rerank(rank, _shift(rank, k), strategy)
+        rank, order, done = _sort_rerank(rank, _shift(rank, k))
         k *= 2
     # once ranks are all distinct, the last sort order IS the suffix array
     return order
@@ -190,13 +169,12 @@ def _symbol_luts(syms, device):
             torch.from_numpy(down).to(device))
 
 
-def _suffix_array_runs(s: torch.Tensor, nr_mode: str = "auto",
+def _suffix_array_runs(s: torch.Tensor,
                        syms: tuple[int, ...] | None = None,
                        r1_keys: int | None = None,
                        m_pad: int | None = None,
                        tok_table: torch.Tensor | None = None,
-                       ell_bits: int | None = None,
-                       strategy: str = "sort"):
+                       ell_bits: int | None = None):
     """Run-aware suffix array + BWT (reference `_suffix_array_runs_jit`,
     171-577): exact run keys seed the ranks, the text is compacted to its
     run-token string, prefix doubling orders the tokens, and one final
@@ -207,7 +185,6 @@ def _suffix_array_runs(s: torch.Tensor, nr_mode: str = "auto",
     static bounds and run-key table (`ops/sa_host.py`), with the
     reference's contracts.  Returns (sa int32, bwt uint8).
     """
-    check_strategy(strategy)
     n = s.shape[0]
     if n >= 1 << 30:
         raise ValueError("run-aware device SA packs (position, side) into "
@@ -249,20 +226,13 @@ def _suffix_array_runs(s: torch.Tensor, nr_mode: str = "auto",
     else:
         key1 = (codes << 1) | (~below).to(_I32)
         key2 = torch.where(below, ell, -ell)
-        rank0, _, done0 = _sort_rerank(key1, key2, strategy)
+        rank0, _, done0 = _sort_rerank(key1, key2)
 
     # compact to the token string: slot j = seed rank at run j's start,
-    # re-densified over token values; pad slots m..n-1 sort last
-    starts_full = None
-    if strategy == "scatter":
-        drop = torch.where(is_start, run_id, n).long()
-        tok = torch.cat([n + iota, iota[:1]])
-        tok.index_put_((drop,), rank0)         # slot n swallows non-starts
-        tok = tok[:n]
-        pad = (iota >= m).to(_I32)
-        tok, _, _ = _sort_rerank(pad, tok, strategy)
-        tok = tok[:M]
-    elif pack_seed and tok_table is not None:
+    # re-densified over token values; pad slots m..n-1 sort last.  Both
+    # forms also give starts_full, the positions of the run starts in
+    # order followed by every other position
+    if pack_seed and tok_table is not None:
         # host-tabled densify: dense0 = number of table keys <= rank0 (the
         # reference's compare-sum over the sorted table; INT32_MAX padding
         # never counts), then one sort puts run starts first, ascending
@@ -305,7 +275,7 @@ def _suffix_array_runs(s: torch.Tensor, nr_mode: str = "auto",
     def packed_round(rank, k: int, nkeys: int = 2, carry=None):
         """One doubling round covering nkeys*p tokens per sort; with
         `carry`, returns sort-order results ((ranks_in_order, order,
-        carry_sorted), k', done) for the fast delivery."""
+        carry_sorted), k', done) for round one's delivery."""
         B = int(torch.max(torch.where(real, rank, -1))) + 2
         # the reference selects the deepest fitting p per element with
         # `where`; B is known on the host here, so only that p is built
@@ -331,7 +301,7 @@ def _suffix_array_runs(s: torch.Tensor, nr_mode: str = "auto",
         if k > ((1 << 31) - 1) // (5 * nkeys):
             mult = 2
         if carry is None:
-            rank, _, done = _sort_rerank_n(keys, strategy, unsigned=True)
+            rank, _, done = _sort_rerank_n(keys, unsigned=True)
             return rank, k * mult, done
         ks, perm = lexsort(keys, unsigned=True)
         rio = _group_ranks(ks)
@@ -341,59 +311,34 @@ def _suffix_array_runs(s: torch.Tensor, nr_mode: str = "auto",
 
     if r1_keys is None:
         r1_keys = 6          # the reference's default (GECOZ_R1_KEYS)
-    # starts_full exists exactly on the sort strategy
-    fast_ok = starts_full is not None and nr_mode != "gather"
 
-    def loop(rank, k, done):
+    # delivery: round one carries sfm1[j] = starts_full[j-1], so when its
+    # ranks come out all distinct one sort delivers rank[j+1] to position
+    # starts_full[j]; otherwise the classic rerank + loop + placement
+    # chain runs.  One segmented forward fill broadcasts each run start's
+    # next rank run-wide
+    sfm1 = torch.roll(starts_full[:M], 1)
+    (rio, order1, K), k1, done1 = packed_round(tok, 1, nkeys=r1_keys,
+                                               carry=sfm1)
+    if done1 or done0:
+        # order1 == 0 wraps to starts_full[M-1]: the last run's next rank
+        # is -1; pad tokens (order1 >= m) deliver -1 to masked slots anyway
+        vals = torch.where((order1 >= m) | (order1 == 0), -1, rio)
+        K_full = torch.cat([K, starts_full[M:]])
+        vals_full = torch.cat([vals, torch.full((n - M,), -1, dtype=_I32,
+                                                device=dev)])
+        placed = apply_perm(K_full, vals_full)
+    else:
+        rank, k, done = apply_perm(order1, rio), k1, False
         while not done and k < 2 * n:
             rank, k, done = packed_round(rank, k)
-        return rank
-
-    def nrank_n(rank):
         # rank of the *next* run's start suffix, back to n slots
         nrank = shifted(rank, 1)
         if M < n:
             nrank = torch.cat([nrank, torch.full((n - M,), -1, dtype=_I32,
                                                  device=dev)])
-        return nrank
-
-    if fast_ok:
-        # fast-path delivery: round one carries sfm1[j] = starts_full[j-1],
-        # so when its ranks come out all distinct one sort delivers
-        # rank[j+1] to position starts_full[j]; otherwise the classic
-        # rerank + loop + placement chain runs
-        sfm1 = torch.roll(starts_full[:M], 1)
-        (rio, order1, K), k1, done1 = packed_round(tok, 1, nkeys=r1_keys,
-                                                   carry=sfm1)
-        if done1 or done0:
-            # order1 == 0 wraps to starts_full[M-1]: the last run's next
-            # rank is -1; pad tokens (order1 >= m) deliver -1 to masked
-            # slots anyway
-            vals = torch.where((order1 >= m) | (order1 == 0), -1, rio)
-            K_full = torch.cat([K, starts_full[M:]])
-            vals_full = torch.cat([vals, torch.full((n - M,), -1,
-                                                    dtype=_I32, device=dev)])
-            placed = apply_perm(K_full, vals_full, strategy=strategy)
-        else:
-            rank = loop(apply_perm(order1, rio, strategy=strategy), k1,
-                        False)
-            placed = apply_perm(starts_full, nrank_n(rank),
-                                strategy=strategy)
-        nr = fill_fwd_i32(torch.where(is_start, placed + 1, -1)) - 1
-    else:
-        rank, k1, done1 = packed_round(tok, 1, nkeys=r1_keys)
-        rank = loop(rank, k1, done1 or done0)
-        nrank = nrank_n(rank)
-        if nr_mode == "fill":
-            # scatter strategy only (the sort strategy takes the fast path
-            # with "fill"): placement lands nrank[j] at the j-th run start;
-            # one segmented forward fill broadcasts it run-wide
-            starts_full = torch.sort((~is_start).to(_I32),
-                                     stable=True).indices.to(_I32)
-            placed = apply_perm(starts_full, nrank, strategy=strategy)
-            nr = fill_fwd_i32(torch.where(is_start, placed + 1, -1)) - 1
-        else:
-            nr = nrank[run_id.long()]        # one monotone gather by run id
+        placed = apply_perm(starts_full, nrank)
+    nr = fill_fwd_i32(torch.where(is_start, placed + 1, -1)) - 1
 
     # final order: (seed rank, next-run rank), BWT riding along
     s_prev = torch.cat([s[n - 1:], s[:n - 1]])
@@ -420,8 +365,7 @@ def bwt_device(s: torch.Tensor, sa: torch.Tensor) -> torch.Tensor:
 
 
 def suffix_array_device(s, impl: str = "auto", with_bwt: bool = False,
-                        device: torch.device | str | None = None,
-                        strategy: str = "sort"):
+                        device: torch.device | str | None = None):
     """Suffix array of a host uint8 array, computed on `device` (default:
     the card, `utils.device.device()`).
 
@@ -456,12 +400,11 @@ def suffix_array_device(s, impl: str = "auto", with_bwt: bool = False,
         sa, bwt = _suffix_array_runs(
             s_dev, syms=syms, m_pad=m_pad,
             tok_table=None if tab is None else torch.from_numpy(tab),
-            ell_bits=ebs, r1_keys=r1_keys, strategy=strategy)
+            ell_bits=ebs, r1_keys=r1_keys)
         return (sa, bwt) if with_bwt else sa
     if impl != "kmer":
         raise ValueError(f"impl must be auto, runs or kmer, got {impl!r}")
-    sa = _suffix_array(s_dev, torch.from_numpy(table), bits=bits,
-                       strategy=strategy)
+    sa = _suffix_array(s_dev, torch.from_numpy(table), bits=bits)
     if with_bwt:
         return sa, bwt_device(s_dev, sa)
     return sa

@@ -97,12 +97,11 @@ def sa_state(sa: torch.Tensor, bwt: torch.Tensor, last_byte: int, sf: int):
     return _pack_bytes(marked), sa[marked] >> sf, bwt
 
 
-def _sort_on_card(data: np.ndarray, dev: torch.device, strategy: str):
+def _sort_on_card(data: np.ndarray, dev: torch.device):
     """(sa, bwt) of one block by the single-card sort; an allocator
     failure becomes a MemoryError naming the way out."""
     try:
-        return suffix_array_device(data, with_bwt=True, device=dev,
-                                   strategy=strategy)
+        return suffix_array_device(data, with_bwt=True, device=dev)
     except torch.cuda.OutOfMemoryError as e:
         raise MemoryError(
             f"the suffix sort of a {len(data)}-byte block does not fit "
@@ -111,8 +110,7 @@ def _sort_on_card(data: np.ndarray, dev: torch.device, strategy: str):
             from e
 
 
-def _block_sa(data: np.ndarray, dev: torch.device, mesh: Mesh | None,
-              strategy: str):
+def _block_sa(data: np.ndarray, dev: torch.device, mesh: Mesh | None):
     """(sa, bwt) of one block on `dev`: the sharded sort over `mesh` when
     the block does not fit `dev` and the mesh has more than one shard
     (gathered to `dev`), else the single-card sort."""
@@ -121,12 +119,11 @@ def _block_sa(data: np.ndarray, dev: torch.device, mesh: Mesh | None,
         if len(mesh) > 1:
             sa, bwt = suffix_array_sharded(data, mesh=mesh)
             return gather_shards(sa, dev), gather_shards(bwt, dev)
-    return _sort_on_card(data, dev, strategy)
+    return _sort_on_card(data, dev)
 
 
 def index_states_batched(blocks: list[np.ndarray], sampling_rate: int,
-                         device=None, mesh: Mesh | None = None,
-                         strategy: str = "sort") -> list:
+                         device=None, mesh: Mesh | None = None) -> list:
     """Device-side index states for variable-length blocks, one sort at a
     time, each at its block's own length.
 
@@ -137,7 +134,7 @@ def index_states_batched(blocks: list[np.ndarray], sampling_rate: int,
     sf = sampling_rate.bit_length() - 1
     out = []
     for data in blocks:
-        sa, bwt = _block_sa(data, dev, mesh, strategy)
+        sa, bwt = _block_sa(data, dev, mesh)
         marks, samples, bwt = sa_state(sa, bwt, int(data[-1]) if len(data)
                                        else 0, sf)
         del sa
@@ -147,15 +144,14 @@ def index_states_batched(blocks: list[np.ndarray], sampling_rate: int,
 
 
 def suffix_arrays_batched(blocks: list[np.ndarray], with_bwt: bool = False,
-                          device=None, mesh: Mesh | None = None,
-                          strategy: str = "sort") -> list:
+                          device=None, mesh: Mesh | None = None) -> list:
     """True suffix arrays (int64, host) of variable-length blocks, each
     sorted on `device` (or sharded over `mesh`, as `index_states_batched`
     routes); with_bwt=True returns (sa, bwt) pairs."""
     dev = default_device(device)
     out = []
     for data in blocks:
-        sa, bwt = _block_sa(data, dev, mesh, strategy)
+        sa, bwt = _block_sa(data, dev, mesh)
         sa = sa.cpu().numpy().astype(np.int64)
         out.append((sa, bwt.cpu().numpy()) if with_bwt else sa)
     return out
@@ -163,8 +159,7 @@ def suffix_arrays_batched(blocks: list[np.ndarray], with_bwt: bool = False,
 
 def encode_blocks(blocks: list[np.ndarray], headers: list[list[str]],
                   sampling_rate: int = 32, device=None,
-                  mesh: Mesh | None = None, strategy: str = "sort"
-                  ) -> list[tuple[bytes, bytes]]:
+                  mesh: Mesh | None = None) -> list[tuple[bytes, bytes]]:
     """Encode many blocks on `device` (default: the card): per block the
     suffix sort and its sampled-SA state (`index_states_batched`), then
     the wavelet bit planes from the device-resident BWT, then the host
@@ -195,8 +190,7 @@ def encode_blocks(blocks: list[np.ndarray], headers: list[list[str]],
             return _serialize(hdrs, n, shape, hswt, ssa)
 
     with metrics.phase("mesh.sa", sum(len(b) for b in blocks)):
-        states = index_states_batched(blocks, sampling_rate, device, mesh,
-                                      strategy)
+        states = index_states_batched(blocks, sampling_rate, device, mesh)
     futures = []
     with ThreadPoolExecutor(max_workers=2) as pool:
         for i, (data, hdrs) in enumerate(zip(blocks, headers)):
@@ -284,7 +278,7 @@ def index_fasta_parallel(ipath, opath, xpath=None, sampling_rate: int = 32,
     encoded = _allgather_encoded(encoded, ctx)
 
     if ctx.process_index == 0:
-        with GecozWriter(opath, xpath, sampling_rate, device=dev) as w:
+        with GecozWriter(opath, xpath) as w:
             for i in range(len(datas)):
                 w.write_encoded(*encoded[i])
 

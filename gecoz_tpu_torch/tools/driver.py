@@ -177,8 +177,7 @@ def index_fasta(ipath, opath, xpath=None, sampling=DEFAULT_SAMPLING_RATE,
                 parts.append(np.zeros(1, dtype=np.uint8))
             return np.concatenate(parts)
 
-    with GecozWriter(opath, xpath, sampling, device=dev,
-                     append=skip > 0) as w:
+    with GecozWriter(opath, xpath, append=skip > 0) as w:
         if dev is not None:
             _index_blocks_mesh(blocks, read_block, w, sampling, dev, mesh)
         else:

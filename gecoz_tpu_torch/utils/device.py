@@ -75,7 +75,7 @@ def hbm_budget(dev: torch.device) -> int | None:
 
 # The single-card suffix sort's peak device memory per input byte, on the
 # card: `chip_smoke.py` phase 3, run T (NVIDIA H100 80GB HBM3, 700 W): the
-# sort strategy without the run-key table peaked at 203.2 B/char at 64 MiB
+# run-aware sort without the run-key table peaked at 203.2 B/char at 64 MiB
 # (174.2 with the table, the branch DNA takes).  The reference's 48 is a
 # TPU figure.
 SA_DEVICE_BYTES_PER_CHAR = 204

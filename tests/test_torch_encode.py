@@ -24,7 +24,8 @@ from gecoz_tpu.formats.fasta import iter_fasta
 from gecoz_tpu.formats.gcz import encode_block as ref_encode_block
 from gecoz_tpu.tools import driver as ref_driver
 from gecoz_tpu_torch import cli
-from gecoz_tpu_torch.formats.gcz import encode_block
+from gecoz_tpu_torch.formats.gcz import (GecozWriter, default_gcx_path,
+                                         encode_block)
 from gecoz_tpu_torch.tools import driver
 
 from conftest import random_block, random_dna
@@ -50,17 +51,36 @@ def _records(rng, k=4, lo=300, hi=2500):
     return recs
 
 
-@pytest.mark.parametrize("strategy", ["sort", "scatter"])
-def test_encode_block_bytes(rng, strategy):
+def test_encode_block_bytes(rng):
     data, _ = random_block(rng, nseq=2, minlen=100, maxlen=800)
     data[20:300] = ord("N")
-    got = encode_block(data, ["a", "b"], device="cpu", strategy=strategy)
+    got = encode_block(data, ["a", "b"], device="cpu")
     assert got == ref_encode_block(data, ["a", "b"], backend="numpy")
     assert got == ref_encode_block(data, ["a", "b"], backend="device")
     for rate in (4, 64):
-        assert encode_block(data, ["a"], rate, device="cpu",
-                            strategy=strategy) == \
+        assert encode_block(data, ["a"], rate, device="cpu") == \
             ref_encode_block(data, ["a"], rate, backend="numpy")
+
+
+@pytest.mark.parametrize("append", [False, True])
+def test_writer_lays_blocks_end_to_end(tmp_path, rng, append):
+    """`GecozWriter` writes each encoded block after the last, the .gcx
+    beside the .gcz; `append` (the resume path) keeps what they held, and
+    a .gcx that cannot be opened raises."""
+    data, _ = random_block(rng, nseq=2, minlen=100, maxlen=400)
+    gcz, gcx = encode_block(data, ["a", "b"], device="cpu")
+    out = tmp_path / "w.gcz"
+    out.write_bytes(b"old")
+    default_gcx_path(out).write_bytes(b"OLD")
+    with GecozWriter(out, append=append) as w:
+        w.write_encoded(gcz, gcx)
+        w.write_encoded(gcz, gcx)
+    old, old_x = (b"old", b"OLD") if append else (b"", b"")
+    assert out.read_bytes() == old + gcz + gcz
+    assert default_gcx_path(out).read_bytes() == old_x + gcx + gcx
+    with pytest.raises(OSError):
+        GecozWriter(out, tmp_path, append=True)     # a directory
+    assert out.read_bytes() == old + gcz + gcz
 
 
 def test_cli_bytes_equal_reference_device_cli(tmp_path, rng):

@@ -64,22 +64,18 @@ def test_build_device_block_matches_reference(rng, monkeypatch,
         want = ref_fmq.build_device_block_jit(jnp.asarray(bwt),
                                               jnp.asarray(sa), sf,
                                               DNA_SYMBOLS)
-        for strategy in ("sort", "scatter"):
-            got = fmq.build_device_block(torch.from_numpy(bwt.copy()),
-                                         torch.from_numpy(sa), sf,
-                                         DNA_SYMBOLS, strategy=strategy)
-            assert got.n == len(data) and got.W == (len(data) + 31) // 32
-            assert_same(got, want)
+        got = fmq.build_device_block(torch.from_numpy(bwt.copy()),
+                                     torch.from_numpy(sa), sf, DNA_SYMBOLS)
+        assert got.n == len(data) and got.W == (len(data) + 31) // 32
+        assert_same(got, want)
 
 
 @pytest.mark.parametrize("sa_impl", ["runs", "kmer"])
 def test_index_block_matches_reference(rng, sa_impl):
     data = _block_text(rng)
     want = ref_pipeline.index_block(jnp.asarray(data), sa_impl=sa_impl)
-    for strategy in ("sort", "scatter"):
-        got = index_block(torch.from_numpy(data.copy()), sa_impl=sa_impl,
-                          strategy=strategy)
-        assert_same(got, want)
+    got = index_block(torch.from_numpy(data.copy()), sa_impl=sa_impl)
+    assert_same(got, want)
 
 
 def test_index_block_with_host_bounds(rng, monkeypatch):

@@ -136,13 +136,12 @@ def _genomic(gen, n=1 << 16):
     return s
 
 
-@pytest.mark.parametrize("strategy", ["sort", "scatter"])
-def test_suffix_sort_on_card(cuda, gen, strategy):
+def test_suffix_sort_on_card(cuda, gen):
     s = _genomic(gen)
     want = suffix_array_numpy(s)
     for impl in ("runs", "kmer"):
         sa, bwt = suffix_array_device(s, impl=impl, with_bwt=True,
-                                      device=cuda, strategy=strategy)
+                                      device=cuda)
         assert sa.is_cuda and sa.dtype == torch.int32
         assert np.array_equal(sa.cpu().numpy(), want), impl
         assert np.array_equal(bwt.cpu().numpy(), bwt_from_sa(s, want))
@@ -201,9 +200,6 @@ def test_fm_search_kernel_matches_plain(cuda, gen):
             want = fmsearch.backward_search_ref(block, a, n)
             assert torch.equal(got[0], want[0])
             assert torch.equal(got[1], want[1])
-            old = fmsearch._search_launch(block, a, n, v1=True)
-            assert torch.equal(old[0], want[0])
-            assert torch.equal(old[1], want[1])
 
 
 def test_fm_search_without_rank_blocks_raises(cuda, gen):
@@ -315,8 +311,8 @@ def test_lf_walk_kernels_match_plain(cuda, gen, monkeypatch, sf, packed):
 
 @pytest.mark.parametrize("sf", [2, 3, 4, 5, 6, 7])
 def test_lf_decode_tiles_at_every_width(cuda, gen, sf):
-    """The staged lfk kernel and the first design (v1) against the plain
-    version: W = 1, W below one warp, W not a multiple of a warp tile, and
+    """The staged lfk kernel against the plain version: W = 1, W below
+    one warp, W not a multiple of a warp tile, and
     rates from 4 (chunks shorter than a 16-byte store) past 32 (chunks of
     whole sectors)."""
     s, blk = _card_block(cuda, gen, sf)
@@ -330,11 +326,8 @@ def test_lf_decode_tiles_at_every_width(cuda, gen, sf):
             np.int32)).to(cuda)
         want = lfwalk.decode_walks_ref(blk.lfk_tab, seeds, rate, mode,
                                        code_map=cmap)
-        old = lfwalk._decode_launch(blk.lfk_tab, seeds, rate, mode, None,
-                                    cmap, v1=True)
-        assert torch.equal(old, want), W
         assert torch.equal(lfwalk.decode_walks(blk.lfk_tab, seeds, rate,
-                                               mode, code_map=cmap), want)
+                                               mode, code_map=cmap), want), W
 
 
 def test_lf_decode_refuses_a_misaligned_table(cuda, gen):

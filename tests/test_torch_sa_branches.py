@@ -2,11 +2,10 @@
 
 The reference picks its branches by backend (`_scatter_is_cheap`); as in
 tests/test_sa_runs.py:105 and :316 it is forced onto its TPU (sort)
-branches here, and each result is held against the port's explicit
-`strategy`: the tok_table compaction, the fused two-sort compaction, the
-scatter compaction, m_pad and ell_bits bounds, the fast delivery and its
-slow branch (periodic text), and all three final-sort forms (by lowering
-the port's thresholds).
+branches here, the port's only ones, and each result is held against the
+port's: the tok_table compaction, the fused two-sort compaction, m_pad and
+ell_bits bounds, the fast delivery and its slow branch (periodic text),
+and all three final-sort forms (by lowering the port's thresholds).
 """
 
 import numpy as np
@@ -26,7 +25,7 @@ torch.set_num_threads(1)
 
 @pytest.fixture
 def ref_sorts(monkeypatch):
-    """The reference on its sort (TPU) strategy, traces rebuilt."""
+    """The reference on its sort (TPU) branches, traces rebuilt."""
     monkeypatch.setattr(ref, "_scatter_is_cheap", lambda: False)
     jax.clear_caches()
     yield
@@ -41,15 +40,13 @@ def _run_block(rng, run=555, alphabet=b"ACGT"):
         np.zeros(1, np.uint8)])
 
 
-def _both(s, ref_kw, port_kw, strategies=("sort", "scatter")):
+def _both(s, ref_kw, port_kw):
     rsa, rbwt = ref._suffix_array_runs_jit(jnp.asarray(s), **ref_kw)
     rsa, rbwt = np.asarray(rsa), np.asarray(rbwt)
     assert np.array_equal(rsa, suffix_array_numpy(s))
-    for strategy in strategies:
-        sa, bwt = port._suffix_array_runs(torch.from_numpy(s.copy()),
-                                          strategy=strategy, **port_kw)
-        assert np.array_equal(sa.numpy(), rsa), (strategy, port_kw)
-        assert np.array_equal(bwt.numpy(), rbwt), (strategy, port_kw)
+    sa, bwt = port._suffix_array_runs(torch.from_numpy(s.copy()), **port_kw)
+    assert np.array_equal(sa.numpy(), rsa), port_kw
+    assert np.array_equal(bwt.numpy(), rbwt), port_kw
 
 
 def test_sort_branches_and_bounds(rng, ref_sorts):
@@ -94,18 +91,7 @@ def test_fast_slow_delivery(kind, rng, ref_sorts):
     for use_tab in (False, True):
         _both(s, dict(kw, tok_table=jnp.asarray(tab) if use_tab else None),
               dict(kw, tok_table=torch.from_numpy(tab) if use_tab else None,
-                   r1_keys=sa_host.runs_r1_keys(tab) if use_tab else None),
-              strategies=("sort",))
-    # the scatter strategy on the same inputs, the reference on its CPU
-    # branch (nr by gather) and with nr_mode="fill"
-    jax.clear_caches()
-    for nr_mode in ("auto", "fill"):
-        sa, bwt = port._suffix_array_runs(torch.from_numpy(s.copy()),
-                                          strategy="scatter",
-                                          nr_mode=nr_mode, **kw)
-        want = suffix_array_numpy(s)
-        assert np.array_equal(sa.numpy(), want)
-        assert np.array_equal(bwt.numpy(), bwt_from_sa(s, want))
+                   r1_keys=sa_host.runs_r1_keys(tab) if use_tab else None))
 
 
 def test_unpacked_seed_branch(rng, ref_sorts):
@@ -127,9 +113,7 @@ def test_final_sort_forms(form, rng, monkeypatch):
     s = _run_block(rng, run=200)
     want = suffix_array_numpy(s)
     syms = tuple(int(x) for x in np.unique(s))
-    for strategy in ("sort", "scatter"):
-        for kw in ({"syms": syms}, {}):
-            sa, bwt = port._suffix_array_runs(torch.from_numpy(s.copy()),
-                                              strategy=strategy, **kw)
-            assert np.array_equal(sa.numpy(), want)
-            assert np.array_equal(bwt.numpy(), bwt_from_sa(s, want))
+    for kw in ({"syms": syms}, {}):
+        sa, bwt = port._suffix_array_runs(torch.from_numpy(s.copy()), **kw)
+        assert np.array_equal(sa.numpy(), want)
+        assert np.array_equal(bwt.numpy(), bwt_from_sa(s, want))

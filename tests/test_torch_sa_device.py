@@ -3,7 +3,7 @@
 The port (gecoz_tpu_torch/ops/sa_device.py, plain versions on the CPU) must
 give exactly the (sa, bwt) of gecoz_tpu's `_suffix_array_runs_jit` /
 `_suffix_array_jit` and of the host oracle, on the cases of
-tests/test_sa_runs.py, under both strategies.  The host helpers copied
+tests/test_sa_runs.py.  The host helpers copied
 into `ops/sa_host.py` must equal the reference helpers.
 """
 
@@ -22,15 +22,13 @@ from gecoz_tpu_torch.ops import sa_host
 
 torch.set_num_threads(1)
 
-STRATEGIES = ("sort", "scatter")
-
 
 def t(a):
     return torch.from_numpy(np.array(a))
 
 
-def port_runs(s, strategy, **kw):
-    sa, bwt = port._suffix_array_runs(t(s), strategy=strategy, **kw)
+def port_runs(s, **kw):
+    sa, bwt = port._suffix_array_runs(t(s), **kw)
     assert sa.dtype == torch.int32 and bwt.dtype == torch.uint8
     return sa.numpy(), bwt.numpy()
 
@@ -106,14 +104,11 @@ def test_runs_fixed_cases(case):
     rsa, rbwt = ref._suffix_array_runs_jit(jnp.asarray(s))
     assert np.array_equal(np.asarray(rsa), want)
     syms = tuple(int(x) for x in np.unique(s))
-    for strategy in STRATEGIES:
-        for kw in ({}, {"nr_mode": "fill"}, {"nr_mode": "gather"},
-                   {"syms": syms if len(syms) <= 7 else None}):
-            sa, bwt = port_runs(s, strategy, **kw)
-            assert np.array_equal(sa, want), (strategy, kw)
-            assert np.array_equal(bwt, np.asarray(rbwt)), (strategy, kw)
-        assert np.array_equal(port._suffix_array(t(s), strategy=strategy)
-                              .numpy(), want)
+    for kw in ({}, {"syms": syms if len(syms) <= 7 else None}):
+        sa, bwt = port_runs(s, **kw)
+        assert np.array_equal(sa, want), kw
+        assert np.array_equal(bwt, np.asarray(rbwt)), kw
+    assert np.array_equal(port._suffix_array(t(s)).numpy(), want)
 
 
 def test_runs_random_small_alphabet(rng):
@@ -121,10 +116,8 @@ def test_runs_random_small_alphabet(rng):
         n = int(rng.integers(2, 300))
         s = rng.choice(np.frombuffer(b"AB\0", np.uint8), size=n)
         want = suffix_array_naive(s)
-        for strategy in STRATEGIES:
-            assert np.array_equal(port_runs(s, strategy)[0], want)
-            assert np.array_equal(port_runs(s, strategy,
-                                            syms=(0, 65, 66))[0], want)
+        assert np.array_equal(port_runs(s)[0], want)
+        assert np.array_equal(port_runs(s, syms=(0, 65, 66))[0], want)
 
 
 def test_runs_random_with_runs(rng):
@@ -143,16 +136,15 @@ def test_runs_random_with_runs(rng):
         s = np.concatenate(parts)
         want = suffix_array_numpy(s)
         syms = tuple(int(x) for x in np.unique(s))
-        for strategy in STRATEGIES:
-            for kw in ({}, {"syms": syms, "m_pad": sa_host.runs_m_pad(s)}):
-                sa, bwt = port_runs(s, strategy, **kw)
-                assert np.array_equal(sa, want), (trial, strategy, kw)
-                assert np.array_equal(bwt, bwt_from_sa(s, want))
+        for kw in ({}, {"syms": syms, "m_pad": sa_host.runs_m_pad(s)}):
+            sa, bwt = port_runs(s, **kw)
+            assert np.array_equal(sa, want), (trial, kw)
+            assert np.array_equal(bwt, bwt_from_sa(s, want))
 
 
 def test_genomic_block_against_reference(rng):
     """Bench-shaped block (random DNA + one long N run) through the
-    reference's host-tabled entry point and the port's, both strategies."""
+    reference's host-tabled entry point and the port's."""
     n = 1 << 15
     s = rng.choice(np.frombuffer(b"ACGT", np.uint8), size=n)
     s[1000:1000 + (1 << 12)] = ord("N")
@@ -160,11 +152,9 @@ def test_genomic_block_against_reference(rng):
     s[n - 1] = 0
     rsa, rbwt = ref.suffix_array_device(s, with_bwt=True)
     assert np.array_equal(np.asarray(rsa), suffix_array_numpy(s))
-    for strategy in STRATEGIES:
-        sa, bwt = port.suffix_array_device(s, with_bwt=True, device="cpu",
-                                           strategy=strategy)
-        assert np.array_equal(sa.numpy(), np.asarray(rsa))
-        assert np.array_equal(bwt.numpy(), np.asarray(rbwt))
+    sa, bwt = port.suffix_array_device(s, with_bwt=True, device="cpu")
+    assert np.array_equal(sa.numpy(), np.asarray(rsa))
+    assert np.array_equal(bwt.numpy(), np.asarray(rbwt))
 
 
 def test_kmer_against_reference(rng):
@@ -172,13 +162,11 @@ def test_kmer_against_reference(rng):
     table, bits = sa_host.dense_table(np.unique(s))
     want = np.asarray(ref._suffix_array_jit(jnp.asarray(s),
                                             jnp.asarray(table), bits=bits))
-    for strategy in STRATEGIES:
-        got = port._suffix_array(t(s), t(table), bits=bits,
-                                 strategy=strategy)
-        assert got.dtype == torch.int32
-        assert np.array_equal(got.numpy(), want)
-        assert np.array_equal(port.bwt_device(t(s), got).numpy(),
-                              bwt_from_sa(s, want))
+    got = port._suffix_array(t(s), t(table), bits=bits)
+    assert got.dtype == torch.int32
+    assert np.array_equal(got.numpy(), want)
+    assert np.array_equal(port.bwt_device(t(s), got).numpy(),
+                          bwt_from_sa(s, want))
 
 
 def test_device_dispatch_impls(rng):
@@ -196,8 +184,6 @@ def test_device_dispatch_impls(rng):
     assert sa.shape == (0,) and bwt.dtype == torch.uint8
     with pytest.raises(ValueError):
         port.suffix_array_device(s, impl="nope", device="cpu")
-    with pytest.raises(ValueError):
-        port._suffix_array_runs(t(s), strategy="nope")
 
 
 def test_lexsort_orders_like_numpy(rng):
@@ -220,26 +206,27 @@ def test_sort_rerank_variants(rng):
     grp = np.r_[0, np.cumsum(np.any(pairs[1:] != pairs[:-1], 1))]
     want = np.empty(200, np.int64)
     want[order] = grp
-    for strategy in STRATEGIES:
-        rank, got_order, done = port._sort_rerank(t(k1), t(k2), strategy)
-        assert np.array_equal(rank.numpy(), want)
-        assert np.array_equal(got_order.numpy(), order) and not done
-        rank1, order1, done1 = port._sort_rerank1(t(np.arange(5)[::-1]
-                                                    .astype(np.int32)),
-                                                  strategy)
-        assert np.array_equal(rank1.numpy(), [4, 3, 2, 1, 0]) and done1
-        assert np.array_equal(order1.numpy(), [4, 3, 2, 1, 0])
+    rank, got_order, done = port._sort_rerank(t(k1), t(k2))
+    assert np.array_equal(rank.numpy(), want)
+    assert np.array_equal(got_order.numpy(), order) and not done
+    rank1, order1, done1 = port._sort_rerank_n(
+        (t(np.arange(5)[::-1].astype(np.int32)),))
+    assert np.array_equal(rank1.numpy(), [4, 3, 2, 1, 0]) and done1
+    assert np.array_equal(order1.numpy(), [4, 3, 2, 1, 0])
 
 
-def test_apply_perm_strategies_agree(rng):
+def test_apply_perm_inverts_the_permutation(rng):
     dest = rng.permutation(300).astype(np.int32)
     v = rng.integers(-9, 9, size=300).astype(np.int32)
+    w = rng.integers(0, 255, size=300).astype(np.uint8)
     want = np.empty_like(v)
     want[dest] = v
-    for strategy in STRATEGIES:
-        assert np.array_equal(port.apply_perm(t(dest), t(v),
-                                              strategy=strategy).numpy(),
-                              want)
+    want_w = np.empty_like(w)
+    want_w[dest] = w
+    assert np.array_equal(port.apply_perm(t(dest), t(v)).numpy(), want)
+    got_v, got_w = port.apply_perm(t(dest), t(v), t(w))
+    assert np.array_equal(got_v.numpy(), want)
+    assert np.array_equal(got_w.numpy(), want_w)
 
 
 def test_size_guard():
