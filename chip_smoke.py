@@ -6,9 +6,10 @@ NVIDIA card.
 
 Phases (any mismatch or exception exits non-zero):
 
-1. environment and build: the card's name and power limit, the four CUDA
-   kernels (scan, fm_search, lf_walk, gcx) built from gecoz_tpu_torch/csrc, one
-   nvcc each, and the host library (g++, csrc/host), all started together
+1. environment and build: the card's name and power limit, the five CUDA
+   kernels (scan, fm_search, lf_walk, gcx, hswt) built from
+   gecoz_tpu_torch/csrc, one nvcc each, and the host library (g++,
+   csrc/host), all started together
    (time, -Xptxas -v); each kernel library's load time;
 2. every scan entry point against its plain PyTorch version, bit-exact, at
    the sizes the path uses and at the one-pass scan's tile edges (and on
@@ -125,7 +126,16 @@ Phases (any mismatch or exception exits non-zero):
     bit-exact, then timed beside their bytes bounds; `gcx.lift` on the
     host clock (the stored bytes up, unpack, scan, decode, the one sync)
     beside the host decode it replaced (`sampled_rows`, the sort,
-    `wsa.perm`, the wrap row).
+    `wsa.perm`, the wrap row);
+16. (run after phase 15) the wavelet tree's decode kernels
+    (`csrc/hswt.cu`: unpack, decode) at the two shapes the benchmark
+    lifts, hg38's chr21 block (46,709,983 bases with N runs) and a
+    Swiss-Prot block (61 records, 23,726 residues), the BWT from the
+    card's suffix sort and the tree read back from its bytes: against
+    their plain versions and `decode_bwt`, bit-exact, then timed beside
+    their bytes bounds; `hswt_device.lift` on the host clock (the streams
+    up, unpack, scan, decode, the one sync) beside the host's
+    `decode_bwt` it replaced.
 
 The port stands alone: an import hook refuses JAX and gecoz_tpu, and the
 oracles are the port's host copies (tests/test_torch_host_copies.py holds
@@ -172,7 +182,7 @@ SHARDED_KERNELS = ("cummax_i32", "cummin_rev_i32")   # phase 10's path
 KERNELS = ("cumsum_i32", "cummax_i32", "cummin_rev_i32", "fill_fwd_i32",
            "fill_rev_i32")
 REPLACES = "gecoz_tpu/ops/scan_pallas.py:114"     # _scan_pallas
-LIBS = ("scan", "fmsearch", "lfwalk", "gcx")
+LIBS = ("scan", "fmsearch", "lfwalk", "gcx", "hswt")
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM data sheet: the bytes bound
 # the query kernels' entry points: (name, source, TPU kernel replaced)
 QUERY_KERNELS = (
@@ -188,7 +198,11 @@ QUERY_KERNELS = (
      "tools/probe_gather2d.py:18"),
     # the .gcx decode of the lift (phase 15); they replace no TPU kernel
     ("gcx.unpack", "gecoz_tpu_torch/csrc/gcx.cu", None),
-    ("gcx.decode", "gecoz_tpu_torch/csrc/gcx.cu", None))
+    ("gcx.decode", "gecoz_tpu_torch/csrc/gcx.cu", None),
+    # the BWT's decode out of the wavelet tree in the lift (phase 16); they
+    # replace no TPU kernel
+    ("hswt.unpack", "gecoz_tpu_torch/csrc/hswt.cu", None),
+    ("hswt.decode", "gecoz_tpu_torch/csrc/hswt.cu", None))
 
 
 def check(ok: bool, what: str) -> None:
@@ -197,19 +211,20 @@ def check(ok: bool, what: str) -> None:
 
 
 def reset_counts() -> None:
-    from gecoz_tpu_torch.ops import fmsearch, gcx, lfwalk, scan
-    for mod in (scan, fmsearch, lfwalk, gcx):
+    from gecoz_tpu_torch.ops import fmsearch, gcx, hswt_device, lfwalk, scan
+    for mod in (scan, fmsearch, lfwalk, gcx, hswt_device):
         mod.reset_launches()
 
 
 def counts() -> dict[str, int]:
     """Launches of every kernel entry point since the last reset."""
-    from gecoz_tpu_torch.ops import fmsearch, gcx, lfwalk, scan
+    from gecoz_tpu_torch.ops import fmsearch, gcx, hswt_device, lfwalk, scan
     out = dict(scan.LAUNCHES)
     out["fm_search"] = fmsearch.LAUNCHES["fm_search"]
     out.update({f"lf_walk.{k}": v for k, v in lfwalk.LAUNCHES.items()})
     out["lf_walk.decode.lfk4"] = lfwalk.DECODE_LAUNCHES["lfk4"]
     out.update({f"gcx.{k}": v for k, v in gcx.LAUNCHES.items()})
+    out.update({f"hswt.{k}": v for k, v in hswt_device.LAUNCHES.items()})
     return out
 
 
@@ -316,14 +331,14 @@ def wall(fn):
 def phase_build(build):
     import concurrent.futures as cf
     from gecoz_tpu_torch import native
-    from gecoz_tpu_torch.ops import fmsearch, gcx, lfwalk, scan
+    from gecoz_tpu_torch.ops import fmsearch, gcx, hswt_device, lfwalk, scan
     t0 = time.perf_counter()
     # one nvcc per source and g++ for the host library, all started
     # together; _lib() also declares the C signatures (and lfwalk's loads
     # its kernels)
     with cf.ThreadPoolExecutor(max_workers=len(LIBS) + 1) as pool:
         futs = [pool.submit(mod._lib)
-                for mod in (scan, fmsearch, lfwalk, gcx)]
+                for mod in (scan, fmsearch, lfwalk, gcx, hswt_device)]
         futs.append(pool.submit(native.available))
         for fut in futs:
             fut.result()
@@ -342,7 +357,8 @@ def phase_build(build):
           "(SA-IS, BWT, rank vectors, LF walks, wavelet fill, inflate, "
           "deflate, LPF)")
     for name, mod in (("scan", scan), ("fm_search", fmsearch),
-                      ("lf_walk", lfwalk), ("gcx", gcx)):
+                      ("lf_walk", lfwalk), ("gcx", gcx),
+                      ("hswt", hswt_device)):
         print(f"# {name} kernels loaded in {mod.INIT_SECONDS * 1e3:.1f} ms "
               "(the library's CUDA runtime set up, every path kernel's "
               "attributes read), before any launch")
@@ -765,6 +781,8 @@ def phase_end_to_end(dev, workdir):
           "launched by the decompress path")
     check(dlaunches["gcx.decode"] > 0, "gcx.decode was not launched by the "
           "decompress path")
+    check(dlaunches["hswt.decode"] > 0, "hswt.decode was not launched by "
+          "the decompress path")
     print(f"# port CLI decompress: {secs:.2f} s -> {total / 1e6 / secs:.2f} "
           f"MB/s end to end, {len(a)} bytes byte-identical to the host "
           f"tier's (md5 {hashlib.md5(a).hexdigest()}), md5 equal to the "
@@ -789,8 +807,9 @@ def phase_end_to_end(dev, workdir):
     open(one, "wb").close()
     profile_busy(lambda: driver._decompress_block(fm, big.headers, one, 0, 4,
                                                   dev),
-                 f"decompress of the {big.len / MiB:.1f} MiB block (host BWT "
-                 "decode, lift, tables, walks, fetch and reflow)",
+                 f"decompress of the {big.len / MiB:.1f} MiB block (the lift, "
+                 "its BWT decoded on the card, tables, walks, fetch and "
+                 "reflow)",
                  ours=("lf_decode", "scan_onepass"))
     del fm
     return launches, dlaunches
@@ -1311,6 +1330,79 @@ def phase_gcx(dev):
     return err, times, bounds
 
 
+def hswt_blocks(dev):
+    """(label, BWT, tree read back from its bytes) at the benchmark's two
+    lift shapes: hg38's chr21 block (46,709,983 bases, 14% N: `chrom`) and
+    a Swiss-Prot block (61 records of ~389 residues); the BWT by the
+    card's suffix sort, the tree by the host's build."""
+    import numpy as np
+    from gecoz_tpu_torch.index.hswt import HSWT
+    from gecoz_tpu_torch.index.shape import HSWTShape
+    from gecoz_tpu_torch.ops.sa_device import suffix_array_device
+    rng = np.random.default_rng(31)
+    dna = chrom(rng, 46_709_982, 40)
+    prot = residues(rng, 23_725)
+    prot[rng.choice(23_724, 60, replace=False)] = 0   # 61 records
+    for label, text in (("hg38", np.append(dna, 0).astype(np.uint8)),
+                        ("swissprot", np.append(prot, 0).astype(np.uint8))):
+        _, bwt = suffix_array_device(text, with_bwt=True, device=dev)
+        bwt = bwt.cpu().numpy()
+        tree = HSWT.build(bwt, HSWTShape.from_counts(
+            np.bincount(bwt, minlength=256)))
+        yield label, bwt, HSWT.read(np.frombuffer(tree.serialize(),
+                                                  np.uint8), len(bwt))
+
+
+def phase_hswt(dev):
+    """Phase 16: the wavelet tree's decode kernels against their plain
+    versions at the benchmark's two lift shapes, timed; the lift beside the
+    host decode it replaced."""
+    import numpy as np
+    from gecoz_tpu_torch.ops import hswt_device, scan
+    err, times, bounds = {}, {}, {}
+    for label, bwt, tree in hswt_blocks(dev):
+        n = len(bwt)
+        raw, nodes, total = hswt_device.upload(tree, dev)
+        words, pc = timed_pair(
+            "hswt.unpack", lambda: hswt_device.unpack(raw, nodes, total),
+            lambda: hswt_device.unpack_ref(raw, nodes, total), 10, err,
+            times, f"hswt.unpack {label}")
+        inc = scan.cumsum_i32(pc)
+        key = f"hswt.decode {label}"
+        got = timed_pair(
+            "hswt.decode",
+            lambda: hswt_device.decode(raw, words, inc, nodes, n),
+            lambda: hswt_device.decode_ref(raw, words, inc, nodes, n), 10,
+            err, times, key)
+        check(np.array_equal(got[0].cpu().numpy(), bwt),
+              f"{key}: the decode differs from the BWT")
+        # unpack: the streams read once, words and popcounts written;
+        # decode: the words and their ranks read once, a byte a position
+        # written
+        streams = len(tree.stored_streams()[0])
+        bounds[f"hswt.unpack {label}"] = streams + 8 * total
+        bounds[key] = 8 * total + n
+        lifts, hosts = [], []
+        for _ in range(5 if label == "hg38" else 20):
+            lifts.append(wall(lambda: hswt_device.lift(tree, dev))[1])
+        for _ in range(2 if label == "hg38" else 20):
+            t0 = time.perf_counter()
+            host = tree.decode_bwt()
+            hosts.append(time.perf_counter() - t0)
+        check(np.array_equal(host, bwt), f"{key}: decode_bwt differs")
+        print(f"# {key}: n {n}, {nodes} nodes, {streams} stream bytes, "
+              f"{total} words, deepest code "
+              f"{int(tree.shape.bit_lengths.max())} bits; bytes bounds unpack "
+              f"{bound_ms(bounds[f'hswt.unpack {label}']):.4f} ms, decode "
+              f"{bound_ms(bounds[key]):.4f} ms, the lift's (streams in, a "
+              f"byte a position out) {bound_ms(streams + n):.4f} ms; lift "
+              f"(the streams up, unpack, scan, decode, one sync) "
+              f"{1e3 * min(lifts):.3f}-{1e3 * max(lifts):.3f} ms on the host "
+              f"clock, the host's decode_bwt it replaced "
+              f"{1e3 * min(hosts):.3f}-{1e3 * max(hosts):.3f} ms")
+    return err, times, bounds
+
+
 def locate_reads(blk, rows) -> int:
     """Random 4-byte reads the locate walks from `rows` make: a plain replay
     of `lfwalk.locate_walks_ref` on the card counting, at every step, the
@@ -1508,8 +1600,9 @@ def phase_search(dev, workdir, port_gcz):
     big = max(reader.headers, key=lambda h: h.len)
     fm = reader.read(big)
     profile_busy(lambda: find_batched(fm, pats, dev),
-                 f"GFF3 search of the {big.len / MiB:.1f} MiB block (host BWT "
-                 "decode, lift, k-mer and locate tables, search, locate)",
+                 f"GFF3 search of the {big.len / MiB:.1f} MiB block (the "
+                 "lift, its BWT decoded on the card, k-mer and locate "
+                 "tables, search, locate)",
                  ours=("fm_search", "lf_locate", "scan_onepass"))
     del fm
 
@@ -1777,7 +1870,7 @@ def phase_wide_alphabets(dev, workdir):
     os.unlink(fa)
     reader = GecozReader(os.path.join(workdir, "protein64.gcz"))
     fm = reader.read(reader.headers[0])
-    _ = fm.bwt                                # the host BWT, once
+    fm.hswt.stored_streams()                  # the tree's streams, once
     nb = fm.length
     for planes in (False, True):
         blk, peak = peak_of(dev, lambda: fmq.with_lf_table(
@@ -1843,7 +1936,7 @@ def phase_wide_alphabets(dev, workdir):
         f.write(gx)
     reader = GecozReader(p256)
     fm = reader.read(reader.headers[0])
-    _ = fm.bwt
+    fm.hswt.stored_streams()
     print(f"# all256: a {n4}-byte block of 256 symbols encoded on the card "
           f"in {secs:.2f} s")
     reset_counts()
@@ -2304,6 +2397,8 @@ def main() -> int:
         qerr, qtimes, qbounds, qrr = phase_query_kernels(dev)
         for got, into in zip(phase_gcx(dev), (qerr, qtimes, qbounds)):
             into.update(got)
+        for got, into in zip(phase_hswt(dev), (qerr, qtimes, qbounds)):
+            into.update(got)
         slaunches = phase_search(dev, work, os.path.join(work, "port.gcz"))
         _, wruns, werr, wtimes, wbounds, wrr = phase_wide_alphabets(dev, work)
         phase_tools(dev, work)
@@ -2335,7 +2430,9 @@ def main() -> int:
             "lf_walk.decode.lfk4": (wruns["decompress"],
                                     "lf_walk.decode lfk4 64 MiB"),
             "gcx.unpack": (dlaunches, "gcx.unpack hg38"),
-            "gcx.decode": (dlaunches, "gcx.decode hg38")}
+            "gcx.decode": (dlaunches, "gcx.decode hg38"),
+            "hswt.unpack": (dlaunches, "hswt.unpack hg38"),
+            "hswt.decode": (dlaunches, "hswt.decode hg38")}
     for k, e in list(werr.items()) + list(serr.items()):
         qerr[k] = max(qerr.get(k, 0), e)
     qtimes.update(wtimes)

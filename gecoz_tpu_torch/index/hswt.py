@@ -13,7 +13,9 @@ Unlike the reference's one-symbol-at-a-time streaming fill
 each node's bit vector is a masked gather over the code arrays; the device
 (torch) build in `gecoz_tpu_torch.ops.wavelet` goes further with level-order
 radix refinement.  Queries keep numpy rank structures per node; the query
-path on the card uses flattened planes in `gecoz_tpu_torch.ops.fmq`.
+path on the card uses flattened planes in `gecoz_tpu_torch.ops.fmq`, and
+decodes the BWT there from the nodes' stored streams (`stored_streams`,
+`gecoz_tpu_torch.ops.hswt_device`).
 """
 
 from __future__ import annotations
@@ -29,9 +31,12 @@ class HSWT:
     """Wavelet tree over one block's BWT."""
 
     def __init__(self, shape: HSWTShape,
-                 nodes: dict[tuple[int, int], RankBitVector]):
+                 nodes: dict[tuple[int, int], RankBitVector],
+                 streams: np.ndarray | None = None):
         self.shape = shape
         self.nodes = nodes
+        self._streams = streams          # the nodes' bytes as read
+        self._stored: tuple[np.ndarray, np.ndarray] | None = None
 
     # -- construction ------------------------------------------------------
 
@@ -98,7 +103,7 @@ class HSWT:
         buf = np.frombuffer(buf, dtype=np.uint8) if not isinstance(buf, np.ndarray) else buf
         reader = BitReader(buf.tobytes())
         shape = HSWTShape.from_serialized(reader, length)
-        offset = reader.bytepos
+        start = offset = reader.bytepos
 
         nodes: dict[tuple[int, int], RankBitVector] = {}
         node_lengths: dict[tuple[int, int], int] = {}
@@ -123,7 +128,43 @@ class HSWT:
         if shape.nodes:
             walk(0, 0, length)
         shape.node_lengths = node_lengths
-        return cls(shape, nodes)
+        return cls(shape, nodes, streams=buf[start:offset])
+
+    def stored_streams(self) -> tuple[np.ndarray, np.ndarray]:
+        """The internal nodes' serialized streams, interleaved with their
+        rank counters as the .gcz stores them, and the node table: the
+        bytes and the shape the device tier decodes the BWT from
+        (`ops/hswt_device.py`).
+
+        Returns (streams, table): streams one contiguous uint8 array, the
+        nodes in pre-order (a view of the bytes read; a tree built in
+        memory serializes its own); table int64 [nodes, 4], a row per node
+        in the same order: its byte offset in streams, its bit length, and
+        for its 0-side and its 1-side the child node's row, or ~symbol at
+        a leaf (~0 on a side no code takes, which `decode_bwt` leaves 0).
+        No rank tier and no per-position work; computed once a tree."""
+        if self._stored is not None:
+            return self._stored
+        keys = self.shape.nodes
+        row = {key: i for i, key in enumerate(keys)}
+        leaf = {(int(self.shape.bit_lengths[s]), int(self.shape.codes[s])):
+                int(s) for s in np.flatnonzero(self.shape.bit_lengths > 0)}
+        table = np.zeros((len(keys), 4), dtype=np.int64)
+        offset = 0
+        for i, (level, prefix) in enumerate(keys):
+            length = self.nodes[(level, prefix)].length
+            table[i, :2] = offset, length
+            offset += rbv_bytes(length)
+            for side in (0, 1):
+                child = (level + 1, prefix | (side << level))
+                table[i, 2 + side] = (row[child] if child in row
+                                      else ~leaf.get(child, 0))
+        streams = self._streams
+        if streams is None:
+            streams = np.frombuffer(b"".join(
+                self.nodes[key].serialize() for key in keys), dtype=np.uint8)
+        self._stored = (streams, table)
+        return self._stored
 
     # -- queries -----------------------------------------------------------
 

@@ -27,9 +27,11 @@ Differences from the reference:
   table of 32-byte blocks (`rank_blocks`), one sector per occ lookup.
 * Permutations are composed by direct gather (`lf[lf]`), where the
   reference composes them on the sort side; the tables are the same.
-* The decode lift uploads the BWT as uint8: the reference's 2-bit packed
-  upload and 4-bit text fetch (`utils/xfer.py`) cut bytes over its remote
-  relay and are not ported.
+* The lift uploads no BWT: the wavelet tree's stored node streams go up
+  and are decoded on the device (`ops/hswt_device.py`, the kernels of
+  `csrc/hswt.cu` on the card), where the reference decodes the BWT on the
+  host and uploads it 2-bit packed (`utils/xfer.py`, as its 4-bit text
+  fetch, not ported).
 * torch has no popcount: a SWAR popcount on int64 stands in.
 * Blocks of more than 16 symbols (protein, IUPAC codes in both cases, up
   to all 256 byte values): the reference's plane engine refuses them
@@ -54,7 +56,7 @@ from dataclasses import dataclass, fields, replace
 import numpy as np
 import torch
 
-from gecoz_tpu_torch.ops import fmsearch, gcx, lfwalk
+from gecoz_tpu_torch.ops import fmsearch, gcx, hswt_device, lfwalk
 from gecoz_tpu_torch.ops.fmsearch import occ_inclusive
 from gecoz_tpu_torch.ops.fmsearch import popcount32 as _popcount32
 from gecoz_tpu_torch.ops.scan import cumsum_i32
@@ -357,22 +359,24 @@ def build_device_block_parts(bwt: torch.Tensor, parts: gcx.DeviceGcx,
 
 
 def device_block_from_fm(fm, device, planes: bool = True) -> DeviceFMBlock:
-    """Lift a host FMIndex (gecoz_tpu.index.fm) onto `device`: the BWT
-    (decoded on the host) and the .gcx's stored bytes go up; the .gcx is
-    decoded there (`gcx.lift`: sampled rows and values, the mark plane and
-    the wrap row), and planes and c are built there.  Any alphabet, up to
-    all 256 byte values; the planes cost about sigma/4 bytes a character,
-    and planes=False (the decode lift) skips them.  Phases: `lift.bwt` (the
-    host BWT, cached once decoded), `lift.gcx` (the .gcx decoded on the
+    """Lift a host FMIndex (gecoz_tpu.index.fm) onto `device`: the wavelet
+    tree's and the .gcx's stored bytes go up and are decoded there (the
+    BWT by `hswt_device.lift`; the sampled rows and values, the mark plane
+    and the wrap row by `gcx.lift`), and planes and c are built there; the
+    host's `fm.bwt` is not read.  Any alphabet, up to all 256 byte values;
+    the planes cost about sigma/4 bytes a character, and planes=False (the
+    decode lift) skips them.  Phases: `lift.bwt` (the tree's streams up,
+    unpacked, ranked and walked on the device, no sync; counters
+    `lift.bwt_symbols` and `lift.bwt_symbols_device`, the symbols lifted
+    and those the device decoded), `lift.gcx` (the .gcx decoded on the
     device, ending in a sync; counters `lift.gcx_values` and
-    `lift.gcx_values_device`, the sampled values lifted and those the
-    device decoded) and `lift.build` (the BWT's upload and the build's
-    launches)."""
+    `lift.gcx_values_device`) and `lift.build` (the build's launches)."""
     fm._require_index()
     n = fm.length
     dev = torch.device(device)
     with metrics.phase("lift.bwt"):
-        bwt = fm.bwt
+        metrics.count("lift.bwt_symbols", n)
+        bwt = hswt_device.lift(fm.hswt, dev)
     with metrics.phase("lift.gcx", n):
         metrics.count("lift.gcx_values", fm.index.ssa_len)
         parts = gcx.lift(fm.index, dev)
@@ -380,8 +384,7 @@ def device_block_from_fm(fm, device, planes: bool = True) -> DeviceFMBlock:
         counts = fm.hswt.symbol_counts()
         symbols = tuple(int(x) for x in np.flatnonzero(counts))
         return build_device_block_parts(
-            torch.from_numpy(np.ascontiguousarray(bwt, dtype=np.uint8))
-            .to(dev), parts, int(fm.index.sampling_factor), symbols, planes)
+            bwt, parts, int(fm.index.sampling_factor), symbols, planes)
 
 
 # -- LF mapping and its tables -----------------------------------------------

@@ -351,15 +351,16 @@ def _decompress_block(fm, headers: list[str], opath, base: int,
 
 def _device_decode(fm, dev: torch.device) -> np.ndarray:
     """Full-text decode of one block on `dev`, phase by phase: the host
-    decodes the BWT out of the wavelet tree, the BWT and the two .gcx
-    arrays go up, the query state (no bit planes: the walks read none) and
-    LF tables are built there, the LF walks (kernel K2) decode, and the
-    text comes back.  Any alphabet: past 16 symbols the walks read byte
-    rows (k = 4)."""
+    takes the wavelet tree's stored streams and node table
+    (`HSWT.stored_streams`), they and the .gcx's bytes go up and are
+    decoded there (the BWT, the sampled rows and values), the query state
+    (no bit planes: the walks read none) and LF tables are built there,
+    the LF walks (kernel K2) decode, and the text comes back.  Any
+    alphabet: past 16 symbols the walks read byte rows (k = 4)."""
     fm._require_index()                       # SystemExit: no .gcx
     n = fm.length
     with metrics.phase("decode.host_bwt", n):
-        _ = fm.bwt
+        fm.hswt.stored_streams()
     with metrics.phase("decode.lift", n):
         block = fmq.device_block_from_fm(fm, dev, planes=False)
         sync(dev)

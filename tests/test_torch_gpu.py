@@ -17,11 +17,14 @@ import pytest
 import torch
 
 from gecoz_tpu_torch.index import iwt, rankbv, ssa
-from gecoz_tpu_torch.ops import fmq, fmsearch, gcx, lfwalk, scan
+from gecoz_tpu_torch.index.hswt import HSWT
+from gecoz_tpu_torch.ops import fmq, fmsearch, gcx, hswt_device, lfwalk, scan
 from gecoz_tpu_torch.ops.fmq import block_to_numpy
 from gecoz_tpu_torch.ops.pipeline import index_block
 from gecoz_tpu_torch.ops.sa import bwt_from_sa, suffix_array_numpy
 from gecoz_tpu_torch.ops.sa_device import suffix_array_device
+
+from test_torch_hswt_device import BLOCKS, block, read_back
 
 pytestmark = pytest.mark.gpu
 
@@ -458,6 +461,116 @@ def test_gcx_entry_points_refuse_what_the_kernels_do_not_take(cuda, gen):
 def test_gcx_kernels_load_before_the_first_launch(cuda):
     gcx._lib()
     assert gcx.INIT_SECONDS is not None
+
+
+@pytest.mark.parametrize("name", BLOCKS)
+def test_hswt_kernels_match_plain(cuda, name):
+    """The wavelet tree's unpack and walk on the card against their plain
+    versions and the host's `decode_bwt`, each launched once; the lift
+    launches each once more."""
+    bwt, tree = block(name)
+    tree = tree if name == "deep_codes" else read_back(tree)
+    n = len(bwt)
+    raw, nodes, total = hswt_device.upload(tree, cuda)
+    before = dict(hswt_device.LAUNCHES)
+    words, pc = hswt_device.unpack(raw, nodes, total)
+    for g, w in zip((words, pc), hswt_device.unpack_ref(raw, nodes, total)):
+        assert torch.equal(g, w)
+    inc = scan.cumsum_i32(pc)
+    got = hswt_device.decode(raw, words, inc, nodes, n)
+    torch.cuda.synchronize()
+    assert hswt_device.LAUNCHES == {k: v + 1 for k, v in before.items()}
+    assert got.shape == (n,) and got.dtype == torch.uint8
+    assert torch.equal(got, hswt_device.decode_ref(raw, words, inc, nodes, n))
+    assert np.array_equal(got.cpu().numpy(), tree.decode_bwt())
+    assert np.array_equal(got.cpu().numpy(), bwt)
+    lifted = hswt_device.lift(tree, cuda)
+    assert hswt_device.LAUNCHES == {k: v + 2 for k, v in before.items()}
+    assert torch.equal(lifted, got)
+
+
+def test_hswt_kernels_match_plain_on_a_damaged_stream(cuda):
+    """Bits flipped in the stored streams: the kernels' positions are
+    clamped as the plain version's are, and the two agree."""
+    bwt, tree = block("dna_n_runs")
+    streams, table = tree.stored_streams()
+    bad = streams.copy()
+    bad[np.random.default_rng(4).choice(len(bad), 300, replace=False)] ^= 0x5A
+    tree._stored = (bad, table)
+    raw, nodes, total = hswt_device.upload(tree, cuda)
+    words, pc = hswt_device.unpack(raw, nodes, total)
+    inc = scan.cumsum_i32(pc)
+    got = hswt_device.decode(raw, words, inc, nodes, len(bwt))
+    assert torch.equal(got, hswt_device.decode_ref(raw, words, inc, nodes,
+                                                   len(bwt)))
+
+
+def test_hswt_entry_points_refuse_what_the_kernels_do_not_take(cuda):
+    bwt, tree = block("protein22")
+    raw, nodes, total = hswt_device.upload(tree, cuda)
+    words, pc = hswt_device.unpack(raw, nodes, total)
+    inc = scan.cumsum_i32(pc)
+    before = dict(hswt_device.LAUNCHES)
+    with pytest.raises(TypeError, match="uint8"):
+        hswt_device.unpack(raw.to(torch.int32), nodes, total)
+    with pytest.raises(TypeError, match="int32"):
+        hswt_device.decode(raw, words.long(), inc, nodes, len(bwt))
+    with pytest.raises(TypeError, match="expected"):
+        hswt_device.decode(raw, words, inc.cpu(), nodes, len(bwt))
+    with pytest.raises(ValueError, match="nodes"):
+        hswt_device.decode(raw, words, inc, 256, len(bwt))
+    assert hswt_device.LAUNCHES == before
+
+
+def test_hswt_kernels_load_before_the_first_launch(cuda):
+    hswt_device._lib()
+    assert hswt_device.INIT_SECONDS is not None
+
+
+def test_decompress_and_search_on_card_decode_the_bwt_there(
+        cuda, gen, tmp_path, monkeypatch):
+    """A multi-record, multi-block .gcz on the card: the decompress writes
+    the host tier's bytes and the GFF3 search gives the host tier's rows,
+    each lifting every block's BWT through the hswt kernels, the host's
+    decode made to raise."""
+    import io
+
+    from gecoz_tpu_torch.formats.gcz import GecozReader
+    from gecoz_tpu_torch.tools import driver
+    fa = tmp_path / "g.fa"
+    seqs = []
+    with open(fa, "wb") as f:
+        for i, n in enumerate((50000, 8000, 700, 41)):
+            q = gen.choice(np.frombuffer(b"ACGT", np.uint8), size=n)
+            q[n // 4:n // 4 + n // 8] = ord("N")
+            seqs.append(q)
+            f.write(b">s%d\n" % i + q.tobytes() + b"\n")
+    gcz = tmp_path / "g.gcz"
+    driver.index_fasta(fa, gcz, device=cuda)
+    nblocks = len(GecozReader(gcz).headers)
+    assert nblocks >= 2
+    qf = tmp_path / "q.fa"
+    with open(qf, "wb") as f:
+        for i in range(40):
+            a = int(gen.integers(0, 45000))
+            f.write(b">q%d\n" % i + seqs[0][a:a + 20 + i].tobytes() + b"\n")
+    host_fa, host_gff = tmp_path / "host.fa", io.StringIO()
+    driver.decompress(gcz, host_fa, backend="numpy")
+    driver.gff_search(gcz, qf, out=host_gff, backend="numpy")
+
+    def refuse(self):
+        raise AssertionError("the host decoded the BWT")
+    monkeypatch.setattr(HSWT, "decode_bwt", refuse)
+    hswt_device.reset_launches()
+    port = tmp_path / "port.fa"
+    driver.decompress(gcz, port, device=cuda)
+    assert port.read_bytes() == host_fa.read_bytes()
+    assert hswt_device.LAUNCHES == {"unpack": nblocks, "decode": nblocks}
+    got = io.StringIO()
+    driver.gff_search(gcz, qf, out=got, device=cuda)
+    assert got.getvalue() == host_gff.getvalue() != ""
+    assert hswt_device.LAUNCHES == {"unpack": 2 * nblocks,
+                                    "decode": 2 * nblocks}
 
 
 def test_decompress_and_search_on_card_equal_host_tier(cuda, gen, tmp_path):

@@ -16,7 +16,10 @@ open, on the CPU.
   with a hit, and packs its patterns once; a compress plans its blocks in
   `index.plan_blocks`.  A lift counts its sampled values once a block,
   those it lifts (`lift.gcx_values`) and those the device decoded
-  (`lift.gcx_values_device`), inside `lift.gcx`.
+  (`lift.gcx_values_device`), inside `lift.gcx`, and its BWT's symbols
+  once a block, those it lifts (`lift.bwt_symbols`) and those the device
+  decoded (`lift.bwt_symbols_device`), inside `lift.bwt`: as many calls
+  for a block of 11,500 symbols as for one of 1,500.
 """
 
 import io
@@ -297,6 +300,34 @@ def test_the_lift_counts_its_sampled_values_once_a_block(
     for name in ("lift.gcx_values", "lift.gcx_values_device"):
         assert calls.count(name) == len(reader.headers) == 2
         assert st[name].count == sampled
+
+
+@pytest.mark.parametrize("verb,parent", [("decompress", "decode.lift"),
+                                         ("search", "search.tables")])
+def test_the_lift_counts_its_bwt_symbols_once_a_block(
+        compressed, tmp_path, rng, monkeypatch, verb, parent):
+    recs, _, gcz, _ = compressed
+    calls = []
+
+    def counting(name, n=1, _orig=metrics.count):
+        calls.append((name, metrics.current()))
+        _orig(name, n)
+    monkeypatch.setattr(metrics, "count", counting)
+    metrics.reset()
+    if verb == "decompress":
+        driver.decompress(gcz, tmp_path / "back.fa", device="cpu")
+    else:
+        qa = tmp_path / "q.fa"
+        write_fasta(qa, _reads(rng, recs, 40))
+        driver.gff_search(gcz, qa, out=io.StringIO(), device="cpu")
+    st = metrics.stats()
+    reader = GecozReader(gcz)
+    symbols = sum(reader.read(h).length for h in reader.headers)
+    assert st["lift.bwt"].parent == parent
+    assert st["lift.bwt"].calls == len(reader.headers) == 2
+    for name in ("lift.bwt_symbols", "lift.bwt_symbols_device"):
+        assert calls.count((name, "lift.bwt")) == len(reader.headers)
+        assert st[name].count == symbols
 
 
 @pytest.mark.parametrize("shape", ["fasta", "fastq_multi_line"])
