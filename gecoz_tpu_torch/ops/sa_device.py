@@ -37,8 +37,9 @@ from gecoz_tpu_torch.utils import metrics
 # final-sort forms of `_suffix_array_runs` (reference lines 551 and 567):
 # below FINAL_CODE_LIMIT (with a static alphabet) the value operand packs
 # (position << 4 | 4-bit BWT code), below FINAL_BYTE_LIMIT (position << 8 |
-# BWT byte); above both, position and BWT byte ride separately.  Module
-# constants so a test can lower them and reach every form at small n.
+# BWT byte); above both, position and BWT byte ride separately, and counter
+# `sa.split_final_bases` adds the block's length.  Module constants so a
+# test can lower them and reach every form at small n.
 FINAL_CODE_LIMIT = 1 << 27
 FINAL_BYTE_LIMIT = 1 << 23
 
@@ -354,6 +355,7 @@ def _suffix_array_runs(s: torch.Tensor,
         order, bwt = ob >> 8, (ob & 255).to(torch.uint8)
     else:
         order, bwt = perm.to(_I32), s_prev[perm]
+        metrics.count("sa.split_final_bases", n)
     return order, bwt
 
 

@@ -140,7 +140,22 @@ def index_states_batched(blocks: list[np.ndarray], sampling_rate: int,
         del sa
         # fetch only the derived artifacts; the BWT stays on the device
         out.append((marks.cpu().numpy(), samples.cpu().numpy(), bwt))
+        _count_sort_peak(dev, len(data))
     return out
+
+
+def _count_sort_peak(dev: torch.device, n: int) -> None:
+    """Once a block sorted on a CUDA device (nothing elsewhere): counter
+    `sa.device_peak_bytes` adds `torch.cuda.max_memory_allocated(dev)`,
+    `sa.sorted_bases` adds the block's n bases.  The program never resets
+    the peak, so the reading is the process's peak since it started, or
+    since its caller last reset it (the benchmark does at its window's
+    start): over a window of one-block compresses the ratio of the two
+    counters is the window's device peak per base of the block."""
+    if dev.type != "cuda":
+        return
+    metrics.count("sa.device_peak_bytes", torch.cuda.max_memory_allocated(dev))
+    metrics.count("sa.sorted_bases", n)
 
 
 def suffix_arrays_batched(blocks: list[np.ndarray], with_bwt: bool = False,

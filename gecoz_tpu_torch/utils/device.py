@@ -76,8 +76,11 @@ def hbm_budget(dev: torch.device) -> int | None:
 # The single-card suffix sort's peak device memory per input byte, on the
 # card: `chip_smoke.py` phase 3, run T (NVIDIA H100 80GB HBM3, 700 W): the
 # run-aware sort without the run-key table peaked at 203.2 B/char at 64 MiB
-# (174.2 with the table, the branch DNA takes).  The reference's 48 is a
-# TPU figure.
+# (174.2 with the table, the branch DNA takes).  A whole compress of
+# GRCh38 chr1's length (248,956,423 bytes with its terminator, the split
+# final sort) peaked at 185.9 B/char on the same card, 46.29 GB
+# (`sort_bytes_per_base.compress` in the benchmark's `hg38.compress_chr1`).
+# The reference's 48 is a TPU figure.
 SA_DEVICE_BYTES_PER_CHAR = 204
 
 

@@ -171,6 +171,39 @@ def test_encode_on_card_equals_host_tier(cuda, gen, tmp_path):
         assert scan.LAUNCHES[name] > 0, name
 
 
+def test_a_compress_on_card_counts_its_sort_peak_once_a_block(
+        cuda, gen, tmp_path, monkeypatch):
+    """Two blocks compressed on the card: `sa.device_peak_bytes` and
+    `sa.sorted_bases` are counted once a block, the first from the
+    allocator's peak, which the program never resets, the second the
+    blocks' bases; neither block is long enough for the split final sort."""
+    from gecoz_tpu_torch.tools import driver
+    from gecoz_tpu_torch.utils import metrics
+    fa = tmp_path / "g.fa"
+    with open(fa, "wb") as f:
+        for i, n in enumerate((50000, 20000)):
+            q = gen.choice(np.frombuffer(b"ACGT", np.uint8), size=n)
+            q[n // 4:n // 4 + n // 8] = ord("N")
+            f.write(b">s%d\n" % i + q.tobytes() + b"\n")
+    calls = []
+
+    def counting(name, n=1, _orig=metrics.count):
+        calls.append(name)
+        _orig(name, n)
+    monkeypatch.setattr(metrics, "count", counting)
+    monkeypatch.setattr(torch.cuda, "reset_peak_memory_stats",
+                        lambda *a, **k: pytest.fail("the peak was reset"))
+    metrics.reset()
+    driver.index_fasta(fa, tmp_path / "g.gcz", device=cuda)
+    st = metrics.stats()
+    assert calls.count("sa.device_peak_bytes") == 2
+    assert calls.count("sa.sorted_bases") == 2
+    assert st["sa.sorted_bases"].count == 50001 + 20001
+    assert 0 < st["sa.device_peak_bytes"].count \
+        <= 2 * torch.cuda.max_memory_allocated(cuda)
+    assert "sa.split_final_bases" not in st
+
+
 def _pack(pats):
     L = max(len(p) for p in pats)
     arr = np.zeros((len(pats), L), np.uint8)

@@ -5,7 +5,8 @@ tests/test_sa_runs.py:105 and :316 it is forced onto its TPU (sort)
 branches here, the port's only ones, and each result is held against the
 port's: the tok_table compaction, the fused two-sort compaction, m_pad and
 ell_bits bounds, the fast delivery and its slow branch (periodic text),
-and all three final-sort forms (by lowering the port's thresholds).
+and all three final-sort forms (by lowering the port's thresholds), the
+split form counted by `sa.split_final_bases`.
 """
 
 import numpy as np
@@ -19,6 +20,7 @@ from gecoz_tpu.ops import sa_device as ref
 from gecoz_tpu.ops.sa import bwt_from_sa, suffix_array_numpy
 from gecoz_tpu_torch.ops import sa_device as port
 from gecoz_tpu_torch.ops import sa_host
+from gecoz_tpu_torch.utils import metrics
 
 torch.set_num_threads(1)
 
@@ -105,7 +107,9 @@ def test_unpacked_seed_branch(rng, ref_sorts):
 
 @pytest.mark.parametrize("form", ["code", "byte", "plain"])
 def test_final_sort_forms(form, rng, monkeypatch):
-    """The three final-sort forms give the same (sa, bwt)."""
+    """The three final-sort forms give the same (sa, bwt); the split
+    ("plain") form adds n to `sa.split_final_bases` once a sort, the
+    packed forms nothing."""
     if form in ("byte", "plain"):
         monkeypatch.setattr(port, "FINAL_CODE_LIMIT", 0)
     if form == "plain":
@@ -113,7 +117,31 @@ def test_final_sort_forms(form, rng, monkeypatch):
     s = _run_block(rng, run=200)
     want = suffix_array_numpy(s)
     syms = tuple(int(x) for x in np.unique(s))
-    for kw in ({"syms": syms}, {}):
+    metrics.reset()
+    for sorts, kw in enumerate(({"syms": syms}, {}), 1):
         sa, bwt = port._suffix_array_runs(torch.from_numpy(s.copy()), **kw)
         assert np.array_equal(sa.numpy(), want)
         assert np.array_equal(bwt.numpy(), bwt_from_sa(s, want))
+        got = metrics.stats().get("sa.split_final_bases")
+        assert (got.count if got else 0) == (sorts * len(s)
+                                             if form == "plain" else 0)
+
+
+@pytest.mark.parametrize("impl", ["runs", "kmer"])
+def test_split_final_form_through_the_block_route(impl, rng, monkeypatch):
+    """`suffix_array_device` with the host's bounds and token table, the
+    route a chr1-length DNA block takes, with both packed final forms out
+    of reach: the run-aware sort counts the block once and matches the
+    plain reference; the k-mer route has no final form and counts
+    nothing."""
+    monkeypatch.setattr(port, "FINAL_CODE_LIMIT", 0)
+    monkeypatch.setattr(port, "FINAL_BYTE_LIMIT", 0)
+    s = _run_block(rng, run=600, alphabet=b"ACGTN")
+    want = suffix_array_numpy(s)
+    metrics.reset()
+    sa, bwt = port.suffix_array_device(s, impl=impl, with_bwt=True,
+                                       device="cpu")
+    assert np.array_equal(sa.numpy(), want)
+    assert np.array_equal(bwt.numpy(), bwt_from_sa(s, want))
+    got = metrics.stats().get("sa.split_final_bases")
+    assert (got.count if got else 0) == (len(s) if impl == "runs" else 0)

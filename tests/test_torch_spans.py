@@ -20,6 +20,11 @@ open, on the CPU.
   once a block, those it lifts (`lift.bwt_symbols`) and those the device
   decoded (`lift.bwt_symbols_device`), inside `lift.bwt`: as many calls
   for a block of 11,500 symbols as for one of 1,500.
+* A compress counts its sort once a block, never a round: the bases of
+  each block whose final sort takes the split form
+  (`sa.split_final_bases`), and, on a CUDA device alone, the card's peak
+  allocation and the bases sorted (`sa.device_peak_bytes`,
+  `sa.sorted_bases`), which a CPU compress leaves absent.
 """
 
 import io
@@ -353,3 +358,62 @@ def test_a_search_counts_its_query_records(compressed, tmp_path, rng, shape):
     assert bulk == (40 if shape == "fasta" else 0)
     assert st["search.located_rows"].count == len(sink.getvalue()
                                                    .splitlines()) >= 40
+
+
+def test_a_compress_counts_its_sort_once_a_block(tmp_path, rng,
+                                                 monkeypatch):
+    """Two blocks, each with a run of N (the second with a periodic stretch
+    too, whose ties outlast round one), with the final forms' limits
+    lowered so that each takes the split form, as a chr1-length block
+    does: the split form counts each block's bases once, while the
+    doubling rounds count more often; the peak is taken once a block and
+    counts nothing on the CPU."""
+    from gecoz_tpu_torch.ops import sa_device
+    from gecoz_tpu_torch.parallel import mesh
+    monkeypatch.setattr(sa_device, "FINAL_CODE_LIMIT", 0)
+    monkeypatch.setattr(sa_device, "FINAL_BYTE_LIMIT", 0)
+    periodic = np.frombuffer(b"AC" * 500, np.uint8)   # ties past round one
+    recs = _genome(rng)[:1] + [("chr2", np.concatenate([
+        random_dna(rng, 1000), np.full(300, ord("N"), np.uint8), periodic]))]
+    fa, gcz = tmp_path / "in.fa", tmp_path / "in.gcz"
+    write_fasta(fa, recs)
+    calls, peaks = [], []
+
+    def counting(name, n=1, _orig=metrics.count):
+        calls.append(name)
+        _orig(name, n)
+
+    def peak(dev, n, _orig=mesh._count_sort_peak):
+        peaks.append((dev.type, n))
+        _orig(dev, n)
+    monkeypatch.setattr(metrics, "count", counting)
+    monkeypatch.setattr(mesh, "_count_sort_peak", peak)
+    metrics.reset()
+    driver.index_fasta(fa, gcz, device="cpu")
+    st = metrics.stats()
+    lengths = sorted(len(s) + 1 for _, s in recs)     # each with its \0
+    assert len(GecozReader(gcz).headers) == 2
+    assert calls.count("sa.split_final_bases") == 2
+    assert st["sa.split_final_bases"].count == sum(lengths)
+    assert calls.count("sa.rounds") > 2
+    assert sorted(peaks) == [("cpu", n) for n in lengths]
+    assert "sa.device_peak_bytes" not in st and "sa.sorted_bases" not in st
+
+
+def test_the_sort_peak_counts_on_a_cuda_device(monkeypatch):
+    """On a CUDA device each call adds the allocator's peak reading and the
+    block's bases, and resets nothing."""
+    import torch
+
+    from gecoz_tpu_torch.parallel import mesh
+    readings = iter([7_000, 9_000])
+    monkeypatch.setattr(torch.cuda, "max_memory_allocated",
+                        lambda dev=None: next(readings))
+    monkeypatch.setattr(torch.cuda, "reset_peak_memory_stats",
+                        lambda *a, **k: pytest.fail("the peak was reset"))
+    metrics.reset()
+    for n in (40, 50):
+        mesh._count_sort_peak(torch.device("cuda", 0), n)
+    st = metrics.stats()
+    assert st["sa.device_peak_bytes"].count == 16_000
+    assert st["sa.sorted_bases"].count == 90
